@@ -1,4 +1,4 @@
-.PHONY: lint test test-tpu bench
+.PHONY: lint test test-gpu smoke bench
 
 lint:
 	python -m flake8 rankfm_tpu/ --max-line-length=120 || true
@@ -6,11 +6,13 @@ lint:
 test:
 	python -m pytest tests/ -x -q
 
-# TPU-gated tests (fused Mosaic kernel, Pallas scatter, scaled parity) on the
-# real device — run every round via the verify drive
-test-tpu:
-	RANKFM_TPU_TEST_TPU=1 python -m pytest tests/test_fused.py \
-		tests/test_scatter.py tests/test_parity.py -x -q
+# gpu-marked tests (scaled oracle-parity gates) on the local GPU
+test-gpu:
+	RANKFM_TEST_GPU=1 python -m pytest tests/ -m gpu -q
+
+# the main path on one GPU, checked against its references
+smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py

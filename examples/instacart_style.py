@@ -104,7 +104,7 @@ def main():
 
     # cross-model comparison vs implicit-feedback ALS — the reference
     # notebook benchmarks implicit.als on the same data (instacart.ipynb
-    # cells 130-137: rankfm HR 0.787 vs ALS 0.264); the in-repo TPU-native
+    # cells 130-137: rankfm HR 0.787 vs ALS 0.264); the in-repo
     # ALS (`rankfm_tpu.baselines.ImplicitALS`) restores that comparison
     from rankfm_tpu.baselines import ImplicitALS
 

@@ -1,10 +1,10 @@
-"""Web-scale smoke test: 100k users x 1M items x 5M interactions on ONE chip.
+"""Web-scale smoke test: 100k users x 1M items x 5M interactions on ONE device.
 
 The reference (single-core Cython) cannot realistically touch this regime —
 its `_recommend` alone extrapolates to ~2 hours for 10k users here. This
 exercises the large-catalog machinery end to end: candidate-step training
 with post-hoc CSR membership rejection (the catalog is too big for a word
-bitmap), the sorted-span Pallas table update, and chunked million-item
+bitmap), the scatter-add table update, and chunked million-item
 retrieval.
 
 Run: python examples/webscale_smoke.py
@@ -44,9 +44,8 @@ def main():
     recs = model.recommend(np.arange(1000), n_items=10, filter_previous=True)
     cold_rec = time.time() - t0
     # second call: the chunked million-item top-k program is compiled now,
-    # so this is the steady serving number (the first call is
-    # compile-dominated — ~70 s of Mosaic/XLA compile over the remote
-    # pool vs seconds of actual retrieval)
+    # so this is the steady serving number (the first call includes the
+    # compile)
     t0 = time.time()
     recs = model.recommend(np.arange(1000, 2000), n_items=10,
                            filter_previous=True)

@@ -3,14 +3,14 @@
 The reference's Instacart notebook benchmarks rankfm against LightFM and
 implicit-ALS (`/root/reference/examples/instacart.ipynb` cells 112-137).
 Those libraries cannot be installed in this environment, so this module
-provides a TPU-native implicit-feedback ALS (Hu/Koren/Volinsky 2008) — the
+provides an implicit-feedback ALS (Hu/Koren/Volinsky 2008) — the
 same model class as `implicit.als.AlternatingLeastSquares` — implemented
 with batched JAX linear algebra:
 
 * the per-row normal equations ``(YtY + Y_u^T (C_u - I) Y_u + reg I) x_u =
   Y_u^T c_u`` are assembled per 512-row user chunk as ONE einsum over the
   chunk's padded histories and solved as a batched [B, F, F] system
-  (`jnp.linalg.solve` vmaps onto the MXU);
+  (`jnp.linalg.solve` batches over the chunk);
 * user and item sides alternate with swapped roles on the transposed CSR.
 
 `ImplicitALS.recommend` follows the RankFM recommend contract (DataFrame

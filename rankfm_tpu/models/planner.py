@@ -1,46 +1,30 @@
 """Training-dispatch planner: every fit-time regime decision as ONE pure
 function over plain scalars, directly unit-testable.
 
-`RankFM.fit_partial` used to derive the whole dispatch matrix inline —
-fused-vs-XLA, window-vs-candidate-vs-mixed, DP-vs-TP placement, batch and
-chunk sizing, negative-window counts, candidate-tail length — across ~540
-lines of nested closures, so the decisions were only pinned indirectly by
-end-to-end probes (VERDICT r3 weak #3). `plan_fit` collapses them into a
-`FitSpec -> FitPlan` mapping with no side effects and no device access;
-`tests/test_planner.py` enumerates the regime matrix against it.
+`plan_fit` maps a `FitSpec` to a `FitPlan` with no side effects and no
+device access; `tests/test_planner.py` enumerates the regime matrix against
+it. The decision rules:
 
-The DECISION RULES are unchanged from round 3 (they are measurement-backed;
-see the field docstrings and BENCHMARKS.md):
-
-* fused Pallas kernel when the tables + scratch fit VMEM on a TPU backend
-  and the batch deals whole 128-row chunk multiples to every device
-  (`ops/fused.fused_table_mode`);
-* windowed negatives from 3 through 8 window blocks, candidate draws
-  outside that band; 'mixed' (or 'auto' beyond 8 / at <= 2 blocks) finishes
-  with a short candidate tail;
+* windowed negatives (`ops/training.make_window_train_step`) from 3 through
+  8 window blocks, reference-style candidate draws outside that band;
 * data-parallel placement (replicated tables, one delta-psum per sync
-  group) whenever the weight pytree fits per chip, explicit table-parallel
-  otherwise (`parallel/train.uses_dp`);
-* batch size capped for synchronous-update stability on the XLA steps,
-  scan-granularity-sized on the fused path (whose synchronous unit is the
-  chunk, not the batch).
+  group) whenever the weight pytree fits the per-device budget the caller
+  passes in (`FitSpec.dp_budget`), explicit table-parallel otherwise
+  (`parallel/train.uses_dp`);
+* batch size capped for synchronous-update stability;
+* candidate-step sampling fidelity (post-hoc rejection, redraw rounds) from
+  the history density.
 """
 
 from __future__ import annotations
 
-import os
-import warnings
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 
-from rankfm_tpu.ops import fused as fused_mod
-
-# chunks walked per Mosaic grid step (fused path). Pure scheduling —
-# trajectories are bitwise-identical for any value (probe_sub_rounds.py) —
-# so the default is whatever the device A/B measures fastest.
-DEFAULT_SUB = 1
+from rankfm_tpu.ops.window import num_blocks
+from rankfm_tpu.parallel.train import DP_TABLE_BYTES, uses_dp
 
 
 def _next_pow2(n):
@@ -50,8 +34,8 @@ def _next_pow2(n):
 @dataclass(frozen=True)
 class FitSpec:
     """Everything `plan_fit` is allowed to look at: data shapes, history
-    density, backend facts, and the constructor knobs. All plain scalars
-    (plus the optional live mesh, reduced to its sizes/uses_dp facts)."""
+    density and the constructor knobs. All plain scalars (plus the optional
+    mesh, of which only the shape is read)."""
 
     n: int                    # interaction rows in THIS fit call
     num_users: int
@@ -66,57 +50,30 @@ class FitSpec:
     num_if: int = 1
     nnz_hist: int = 0         # total distinct (u, i) history pairs
     mean_sample_weight: float = 1.0
-    on_tpu: bool = False
     mesh: object = None       # jax.sharding.Mesh | None
     table_bytes: int = 0      # weight pytree bytes (DP-vs-TP input)
+    # bytes a replicated pytree may take per device: `fit` passes
+    # `parallel/train.dp_table_budget(mesh)`
+    dp_budget: int = DP_TABLE_BYTES
     # knobs (RankFM constructor extras)
     batch_size: Optional[int] = None
     train_step: str = "auto"
-    use_fused: object = "auto"
-    n_windows: Optional[int] = None
-    tail_windows: Optional[int] = None
     sample_rounds: object = "auto"
-    shuffle_layouts: object = "auto"
 
 
 @dataclass(frozen=True)
 class FitPlan:
-    """The resolved dispatch: which engines run which epochs, at what
-    shapes, placed how. Consumed by `RankFM.fit_partial`."""
+    """The resolved dispatch: which step runs the epochs, at what batch,
+    placed how. Consumed by `RankFM.fit_partial`."""
 
     max_samples: int          # 1 for BPR (`rankfm.py:294-297`)
     n_dev: int                # devices on the mesh (1 when mesh is None)
     nblk: int                 # catalog window blocks (regime selector)
-    # fused Pallas main path
-    fused: bool               # main epochs run the fused kernel
-    table_mode: Optional[str]  # 'f32' | 'bf16' | None (VMEM eligibility)
-    table_bf16: bool          # stochastically-rounded bf16 VMEM tables
-    batch_size: int           # fused global batch (scan granularity)
-    chunk: int                # fused chunk rows (negative-window unit)
-    sub: int                  # chunks walked per Mosaic grid step (pure
-                              # scheduling: bitwise-identical trajectories,
-                              # amortizes fixed per-grid-step cost)
-    user_block: int           # fused user-bucket rows (pure layout; 0 = n/a)
-    shuffle_layouts: int      # pre-computed epoch layouts cycled (1 = sort
-                              # per epoch); see fused.make_shuffle_fn
-    n_windows: Optional[int]  # per-chunk window override (None = default)
-    # epoch split (mixed schedule)
-    n_main: int               # epochs on the main engine
-    n_tail: int               # candidate-tail epochs at the end
-    tail_windows: Optional[int]  # wide-window fused tail instead (resolved)
-    # XLA path (fallback main epochs and the candidate tail)
-    xla_batch: int
-    step_kind: str            # 'window' | 'candidate' for XLA MAIN epochs
+    batch_size: int
+    step_kind: str            # 'window' | 'candidate'
     placement: str            # 'single' | 'dp' | 'tp'
     rounds: int               # candidate-step rejection redraw rounds
     post_reject: bool         # post-hoc membership testing (sparse regime)
-    # chunk-tail schedule (round 5): the LAST chunk_tail fused epochs
-    # re-run at the oracle-parity layout (tail_chunk @ tail_user_block,
-    # tail_sub sub-rounds) — see BENCHMARKS.md round-5 frontier sweep
-    chunk_tail: int = 0       # closing epochs at the parity layout (0=off)
-    tail_chunk: int = 0
-    tail_user_block: int = 0
-    tail_sub: int = 1
 
 
 # candidate-step sampling strategy switch: below this history density the
@@ -135,8 +92,8 @@ def _mesh_devices(mesh):
     return n
 
 
-def _auto_batch_size(spec, fused):
-    """Auto minibatch size (moved verbatim from `RankFM._auto_batch_size`).
+def _auto_batch_size(spec):
+    """Auto minibatch size.
 
     Synchronous batches lose the sequential SGD's self-stabilizing
     feedback: if an item row is touched k times in one batch, the k
@@ -144,15 +101,9 @@ def _auto_batch_size(spec, fused):
     (k ~ 2B/I for uniform negatives; sample weights scale the step).
     Cap expected touches-per-item at ~4 / mean_sw^2 — empirically the
     stability boundary on small catalogs, while leaving large-catalog
-    configs (e.g. ML-1M at B=8192) untouched.
-
-    The fused kernel's synchronous unit is its chunk, not the batch, so
-    there the batch is just scan granularity — bigger is cheaper (fewer
-    scan-step overheads) with no stability cost."""
+    configs (e.g. ML-1M at B=8192) untouched."""
     if spec.batch_size is not None:
         return spec.batch_size
-    if fused:
-        return min(32768, max(256, _next_pow2(max(spec.n, 1))))
     num_items = max(spec.num_items, 1)
     mean_sw = max(float(spec.mean_sample_weight), 0.0)
     stable_cap = max(256, _next_pow2(int(2 * num_items / max(mean_sw, 1.0) ** 2)))
@@ -169,95 +120,23 @@ def plan_fit(spec: FitSpec) -> FitPlan:
     else:
         raise ValueError("[loss] function not recognized")
 
-    U, I, F = spec.num_users, spec.num_items, spec.factors
+    U, I = spec.num_users, spec.num_items
     n_dev = _mesh_devices(spec.mesh)
-    nblk = fused_mod.item_pad(I) // fused_mod.block_size(I)
+    nblk = num_blocks(I)
 
-    # ---- fused eligibility (tables + scratch must fit VMEM; on a mesh the
-    # fused kernel only runs DATA-PARALLEL — replicated tables, per-device
-    # Mosaic step, one delta-psum per sync group) ----
-    table_mode = fused_mod.fused_table_mode(
-        U, I, F, spec.x_uf_any, spec.x_if_any,
-        num_uf=spec.num_uf, num_if=spec.num_if)
-    fused_mesh_ok = False
-    if spec.mesh is not None and table_mode is not None:
-        from rankfm_tpu.parallel.train import uses_dp
-        fused_mesh_ok = uses_dp(spec.mesh, 128 * n_dev, spec.table_bytes)
-    fused_possible = (
-        spec.use_fused in (True, "auto")
-        and (spec.mesh is None or fused_mesh_ok)
-        and spec.on_tpu
-        and table_mode is not None
-    )
-
-    bs = _auto_batch_size(spec, fused=fused_possible)
-    if fused_possible and spec.mesh is not None and spec.batch_size is None:
-        # the GLOBAL batch must deal whole 128-row chunk multiples to
-        # every device
-        q = 128 * n_dev
-        bs = ((bs + q - 1) // q) * q
-    fused = (fused_possible and bs >= 128 * n_dev
-             and bs % (128 * n_dev) == 0)
-
-    # fused chunk (the negative-window sharing unit) and window override
-    chunk = fused_mod.pick_chunk(max(bs // n_dev, 128), U, I, spec.n) \
-        if fused else 0
-    ub = fused_mod.pick_user_block(U, I, spec.n, chunk) if fused else 0
-    # sub-rounds per grid step: pure scheduling (bitwise-identical
-    # trajectories to sub=1 — tools/probe_sub_rounds.py), so this is a
-    # throughput-only knob; `make_fused_batch_fn` clamps it to a divisor
-    # of chunks-per-batch that fits the VMEM pipeline budget.
-    # RANKFM_TPU_SUB overrides for A/B probing.
-    if fused:
-        try:
-            sub = int(os.environ.get("RANKFM_TPU_SUB", DEFAULT_SUB))
-        except ValueError:
-            warnings.warn("RANKFM_TPU_SUB is not an integer - using the "
-                          f"default ({DEFAULT_SUB})")
-            sub = DEFAULT_SUB
-    else:
-        sub = 1
-    # R pre-computed shuffled layouts cycled across epochs amortize the
-    # per-epoch segmented sort (~3 ms of the 26 ms ML-1M epoch; R fits in
-    # R x 6 MB HBM). Windows, negative draws, and the chunk visit
-    # rotation stay per-epoch fresh — only chunk co-membership recurs,
-    # every R epochs. Oracle-gated like every fused sampling change.
-    # NOT clamped to epochs: R is part of the compiled program identity
-    # (pre-shuffled vs sort-per-epoch), and auto must resolve the same way
-    # for a 1-epoch warmup fit and the 20-epoch production fit so they
-    # share one executable; unused layouts are never materialized (built
-    # lazily per cycling index). Auto stays at 1 — the ML-1M oracle A/B
-    # measured R=4 slightly OUTSIDE the round-3 quality band (worst-seed
-    # -0.013 HR / -0.027 DCG vs -0.009 / -0.020 at R=1) with no reliable
-    # wall-clock win on the shared pool, so cycling is opt-in.
-    if not fused or spec.shuffle_layouts == "auto":
-        shuffle_layouts = 1
-    else:
-        shuffle_layouts = max(1, int(spec.shuffle_layouts))
-    table_bf16 = fused_mod.TABLE_BF16 or table_mode == "bf16"
-    nw_main = None
-    if fused and spec.n_windows is not None:
-        nw_main = min(spec.n_windows, nblk,
-                      max(1, fused_mod.max_n_windows(
-                          U, I, table_bf16, spec.x_uf_any, spec.x_if_any)))
-        if nw_main == fused_mod.default_n_windows(nblk):
-            nw_main = None
-
-    # ---- XLA path: batch, step kind, placement, sampling fidelity ----
-    bs_x = _auto_batch_size(spec, fused=False)
+    bs = _auto_batch_size(spec)
     if spec.mesh is not None:
-        # every sharded batch axis (DP shard_map AND the GSPMD fallback's
+        # every sharded batch axis (DP shard_map AND the GSPMD path's
         # in_shardings) needs the padded row count to divide the device
         # count — round the batch up so n_pad inherits the property
-        bs_x = ((bs_x + n_dev - 1) // n_dev) * n_dev
+        bs = ((bs + n_dev - 1) // n_dev) * n_dev
 
     # windowed negatives are at metric parity with reference-style
     # candidate draws from 3 through ~8 window blocks; beyond that the
-    # candidate step's catalog-wide sampling measurably wins, and at <= 2
-    # blocks the candidate step's full [B, I] score matmul costs the same
-    # as the window matmul while the window path shows a fat left quality
-    # tail (tools/probe_dispatch_smallcat.py)
-    if spec.train_step in ("auto", "mixed"):
+    # candidate step's catalog-wide sampling wins, and at <= 2 blocks the
+    # candidate step's full [B, I] score matmul costs the same as a window
+    # while the window path shows a fat left quality tail
+    if spec.train_step == "auto":
         step_kind = "window" if 2 < nblk <= 8 else "candidate"
     else:
         step_kind = spec.train_step
@@ -268,7 +147,7 @@ def plan_fit(spec: FitSpec) -> FitPlan:
         # smallest R with residual member-slot probability density^R < 1e-6
         # (residual slots are MASKED out of the loss, so this is a coverage
         # knob, not a correctness one); each round costs a [B, M]
-        # membership pass (~1.2 ms/batch at ML-1M shape)
+        # membership pass
         rounds = int(np.clip(np.ceil(
             -6.0 / np.log10(np.clip(density, 1e-12, 0.99))), 2, 8))
     else:
@@ -276,73 +155,11 @@ def plan_fit(spec: FitSpec) -> FitPlan:
 
     placement = "single"
     if spec.mesh is not None:
-        from rankfm_tpu.parallel.train import uses_dp
-        placement = "dp" if uses_dp(spec.mesh, bs_x, spec.table_bytes) \
-            else "tp"
-
-    # ---- epoch split: mixed schedule (fused epochs finished by a short
-    # candidate tail — catalog-wide hard negatives land at the END, where
-    # WARP needs them; measured to BEAT pure-candidate quality at ~4x its
-    # speed, tools/probe_feature_ab.py). Only meaningful on the fused
-    # path; the XLA 'auto'/'mixed' rule resolves to step_kind above. ----
-    n_tail = 0
-    if fused and (spec.train_step == "mixed"
-                  or (spec.train_step == "auto"
-                      and (nblk > 8 or nblk <= 2))):
-        # 3 tail epochs measured better than 5 at 30 epochs (more fused
-        # pre-training, same catalog-wide finish). <= 2 blocks: the pure
-        # window path is seed-fragile on tiny catalogs (worst -0.118 HR
-        # over seeds) while the tail costs ~0.1 s and restores +-0.03
-        n_tail = min(3, spec.epochs // 6)
-        if spec.train_step == "auto" and nblk <= 2:
-            # short fits still get at least one catalog-wide epoch
-            n_tail = max(n_tail, min(1, spec.epochs - 1))
-
-    # wide-window fused tail instead of the candidate tail (experimental
-    # knob): same kernel, more negative windows per chunk
-    nw_tail = None
-    if fused and n_tail and spec.tail_windows and spec.tail_windows > 1:
-        cand = min(spec.tail_windows, nblk,
-                   fused_mod.max_n_windows(
-                       U, I, table_bf16, spec.x_uf_any, spec.x_if_any))
-        if cand > fused_mod.default_n_windows(nblk):
-            nw_tail = cand
-
-    # ---- chunk-tail schedule (round 5): pure-fused plans finish their
-    # last max(1, epochs//6) epochs at the oracle-parity layout chunk128 @ UB256
-    # (SUB 8 amortizes the doubled grid). The frontier sweep
-    # (tools/probe_frontier_r5.py, BENCHMARKS.md) measured the parity
-    # point at worst-seed -0.004 HR but only ~47-49x, while the fast
-    # chunk-256 layout runs ~55x at -0.009: chunk-sharing correlation is
-    # a LATE-training precision problem (the same mechanism as the
-    # candidate tail above), so a short closing tail restores parity
-    # (-0.004 HR / -0.012 DCG worst-seed, tools/probe_chunk_tail.py) at
-    # ~54x. Gated off whenever another tail engine runs, on meshes (the
-    # DP record split doesn't re-deal mid-fit), and under pre-computed
-    # shuffle layouts (built for the main layout only). Side features
-    # are IN (round 5): run_fused re-derives the user feature-block
-    # padding at the tail layout; featured oracle A/B in
-    # tools/probe_feature_tail.py.
-    chunk_tail = 0
-    tail_chunk = tail_ub = 0
-    tail_sub = 1
-    if (fused and n_tail == 0 and spec.mesh is None
-            and chunk > 128 and shuffle_layouts == 1 and spec.epochs >= 2):
-        # ~1/6 of the epochs: tails of 3/4/5/10 at the 20-epoch headline
-        # all measure inside the parity band (probe_chunk_tail runs with
-        # tails 3-10), so take the cheapest one — 3 tail epochs price at
-        # ~54x vs 53.3x for 5
-        chunk_tail = max(1, spec.epochs // 6)
-        tail_chunk, tail_ub, tail_sub = 128, 256, 8
+        placement = "dp" if uses_dp(spec.mesh, bs, spec.table_bytes,
+                                    spec.dp_budget) else "tp"
 
     return FitPlan(
-        max_samples=max_samples, n_dev=n_dev, nblk=nblk,
-        fused=fused, table_mode=table_mode, table_bf16=table_bf16,
-        batch_size=bs, chunk=chunk, sub=sub, user_block=ub,
-        shuffle_layouts=shuffle_layouts, n_windows=nw_main,
-        n_main=spec.epochs - n_tail, n_tail=n_tail, tail_windows=nw_tail,
-        xla_batch=bs_x, step_kind=step_kind, placement=placement,
-        rounds=rounds, post_reject=post_reject,
-        chunk_tail=chunk_tail, tail_chunk=tail_chunk,
-        tail_user_block=tail_ub, tail_sub=tail_sub,
+        max_samples=max_samples, n_dev=n_dev, nblk=nblk, batch_size=bs,
+        step_kind=step_kind, placement=placement, rounds=rounds,
+        post_reject=post_reject,
     )

@@ -24,25 +24,33 @@ _lib = None
 _tried = False
 
 
+# -ffp-contract=off: left to itself the compiler fuses a*b+c into one
+# multiply-add wherever the target has the instruction, and where it does
+# depends on the target; the oracle's sequential float trajectory, and
+# with it its ML-1M hit rate (0.8402 built for AVX-512, 0.8321 for AVX2),
+# then moved with the host. Without contraction every x86-64 target gives
+# the same result.
+_CXXFLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC",
+             "-std=c++17")
+
+
 def _compile_and_load(src, stem):
     """Compile ``src`` (if needed) and CDLL it.
 
-    The binary path is keyed on a content hash of the source: a fresh
-    checkout (where mtimes are meaningless) always rebuilds for ITS source
-    and ITS machine — binaries are never shipped (they are built
-    -march=native). g++ writes to a temp file that is atomically renamed
-    into place, so concurrent builders (pytest-xdist workers, a test plus a
-    probe script) never CDLL a partially-written ELF."""
+    The binary path is keyed on a content hash of the source and the
+    flags: a fresh checkout (where mtimes are meaningless) always rebuilds
+    for ITS source and ITS machine — binaries are never shipped (they are
+    built -march=native). g++ writes to a temp file that is atomically
+    renamed into place, so concurrent builders (pytest-xdist workers, a
+    test plus a probe script) never CDLL a partially-written ELF."""
     with open(src, "rb") as f:
-        h = hashlib.sha256(f.read()).hexdigest()[:16]
-    path = os.path.join(_HERE, f"{stem}-{h}.so")
+        h = hashlib.sha256(f.read() + " ".join(_CXXFLAGS).encode())
+    path = os.path.join(_HERE, f"{stem}-{h.hexdigest()[:16]}.so")
     if not os.path.exists(path):
         tmp = f"{path}.{os.getpid()}.tmp"
         try:
-            subprocess.run(
-                ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-std=c++17", "-o", tmp, src],
-                check=True, capture_output=True)
+            subprocess.run(["g++", *_CXXFLAGS, "-o", tmp, src],
+                           check=True, capture_output=True)
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):
@@ -172,7 +180,7 @@ _oracle_tried = False
 def get_oracle():
     """Load (building if necessary) the sequential reference-semantics SGD
     oracle (oracle.cpp); None if no toolchain. Test/validation infrastructure
-    — the TPU training path never calls this."""
+    — the training path never calls this."""
     global _oracle_lib, _oracle_tried
     if _oracle_lib is not None or _oracle_tried:
         return _oracle_lib
@@ -180,22 +188,29 @@ def get_oracle():
         if _oracle_lib is not None or _oracle_tried:
             return _oracle_lib
         _oracle_tried = True
-        src = os.path.join(_HERE, "oracle.cpp")
         try:
-            lib = _compile_and_load(src, "_oracle")
-            lib.rfm_oracle_fit.restype = ctypes.c_int32
-            lib.rfm_oracle_fit.argtypes = (
-                [ctypes.c_void_p] * 2 + [ctypes.c_int64]
-                + [ctypes.c_void_p] * 10
-                + [ctypes.c_int32] * 5
-                + [ctypes.c_float, ctypes.c_float, ctypes.c_float,
-                   ctypes.c_int32, ctypes.c_float,
-                   ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64]
-                + [ctypes.c_void_p])
-            _oracle_lib = lib
+            _oracle_lib = bind_oracle(_compile_and_load(ORACLE_SRC,
+                                                        "_oracle"))
         except Exception:
             _oracle_lib = None
     return _oracle_lib
+
+
+ORACLE_SRC = os.path.join(_HERE, "oracle.cpp")
+
+
+def bind_oracle(lib):
+    """Declare the oracle's C signature on a loaded ``lib``; returns it."""
+    lib.rfm_oracle_fit.restype = ctypes.c_int32
+    lib.rfm_oracle_fit.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int64]
+        + [ctypes.c_void_p] * 10
+        + [ctypes.c_int32] * 5
+        + [ctypes.c_float, ctypes.c_float, ctypes.c_float,
+           ctypes.c_int32, ctypes.c_float,
+           ctypes.c_int32, ctypes.c_int32, ctypes.c_uint64]
+        + [ctypes.c_void_p])
+    return lib
 
 
 def oracle_fit(interactions, sample_weight, offsets, items, x_uf, x_if,

@@ -2,7 +2,7 @@
 //
 // The reference's native layer is a Cython SGD loop plus malloc'd copies of
 // the per-user item lists (/root/reference/rankfm/_rankfm.pyx:204-212). In
-// this framework the compute path is XLA on TPU; the native layer instead
+// this framework the compute path is XLA on the accelerator; the native layer instead
 // accelerates the *host* stage that feeds the device: mapping raw int64 id
 // pairs to dense int32 indices and building the CSR user-history structure.
 // pandas Series.map + groupby cost minutes at 10^8 rows; this does one sort.

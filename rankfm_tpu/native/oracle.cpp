@@ -2,7 +2,7 @@
 //
 // An independent reimplementation of the reference's per-sample training
 // loop semantics (/root/reference/rankfm/_rankfm.pyx:122-342) used ONLY as a
-// parity oracle for tests/benchmarks: the TPU build's batched epochs are
+// parity oracle for tests/benchmarks: the batched accelerator epochs are
 // validated against this oracle at the METRIC level (hit-rate/recall@k), per
 // SURVEY.md §2.4 ("parity target is metric parity, not bitwise weight
 // parity").

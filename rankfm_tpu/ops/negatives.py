@@ -1,6 +1,6 @@
 """On-device negative sampling against ragged user histories.
 
-TPU-native replacement for the reference's rejection loop
+The accelerator replacement for the reference's rejection loop
 (`/root/reference/rankfm/_rankfm.pyx:249-252`): draw ``j = rand() % I`` and
 reject while ``j`` is in the user's sorted item array (`lsearch`,
 `_rankfm.pyx:20-27`).
@@ -69,7 +69,7 @@ def bitmap_member(bitmap_words, u, j):
     """Vectorized membership test against the packed bitmap.
 
     ``u [B]``, ``j [B, K]`` -> bool [B, K]. One contiguous row gather
-    (``bitmap[u]``) plus an in-row take_along_axis — far cheaper on TPU than
+    (``bitmap[u]``) plus an in-row take_along_axis — cheaper than
     per-element 2-D gathers.
     """
     return _rows_member(bitmap_words[u], j)
@@ -90,7 +90,7 @@ def sample_negatives_bitmap(key, u, bitmap_words, num_items, max_samples, rounds
     non-member per slot.
 
     All arrays stay in ``[B, M]`` layout — no 3-D reshapes (a trailing dim of
-    ``rounds`` would force an expensive lane relayout on TPU). Residual
+    ``rounds`` would force a relayout of every candidate array). Residual
     all-member slots (probability (h_u/I)^rounds) are flagged invalid and
     masked downstream, mirroring `sample_negatives`.
     """

@@ -1,19 +1,19 @@
-"""Batched pairwise BPR/WARP training step — TPU-native replacement for the
-reference's per-sample Cython SGD loop (`/root/reference/rankfm/_rankfm.pyx:122-342`).
+"""Batched pairwise BPR/WARP training step — the accelerator replacement for
+the reference's per-sample Cython SGD loop (`rankfm/_rankfm.pyx:122-342`).
 
 Two step flavors, both with zero data-dependent control flow (the reference
 draws negatives sequentially with a margin early-stop, `_rankfm.pyx:244-270`):
 
-* **Window step** (`make_window_train_step`, the default through 8 window
-  blocks) — the XLA twin of the fused Pallas kernel: negatives come from G
-  random contiguous item blocks per batch, scored by batched MXU matmuls;
-  the draw count is sampled in closed form (1 + Geometric of the window's
-  violator rate), a uniform window violator is picked by masked argmax, and
-  the no-violation fallback takes the hardest member of a Bernoulli subset
+* **Window step** (`make_window_train_step`, the default from 3 through 8
+  window blocks): negatives come from G random contiguous item blocks per
+  batch (`rankfm_tpu.ops.window`), scored by batched matmuls; the draw
+  count is sampled in closed form (1 + Geometric of the window's violator
+  rate), a uniform window violator is picked by masked argmax, and the
+  no-violation fallback takes the hardest member of a Bernoulli subset
   that emulates "hardest of max_samples uniform draws" exactly.
 
-* **Candidate step** (`make_train_step`, huge catalogs and the mesh path) —
-  the reference's own shape: a fixed-width [B, max_samples] candidate
+* **Candidate step** (`make_train_step`, every other catalog size): the
+  reference's own shape — a fixed-width [B, max_samples] candidate
   matrix; because every pre-stop draw has pairwise >= MARGIN, the first
   violator IS the running min, so ``(j, sampled)`` falls out of a masked
   argmax/argmin. Membership rejection is pre-draw (bitmap/bsearch samplers)
@@ -25,12 +25,10 @@ draws negatives sequentially with a margin early-stop, `_rankfm.pyx:244-270`):
   compiled with ``cdivision=True``).
 
 * **Gradients are hand-written** (the model is 5 einsums) and accumulated
-  across the minibatch — through the Pallas table-update op
-  (`ops/scatter.py`) on TPU, or ``.at[].add`` scatter-adds elsewhere —
-  exactly mirroring the per-weight update expressions at
-  `_rankfm.pyx:272-326`, including the detail that feature-factor rows are
-  only touched when the corresponding feature value (or positive/negative
-  feature *difference*) is nonzero.
+  across the minibatch with ``.at[].add`` scatter-adds, exactly mirroring
+  the per-weight update expressions at `_rankfm.pyx:272-326`, including the
+  detail that feature-factor rows are only touched when the corresponding
+  feature value (or positive/negative feature *difference*) is nonzero.
 
 * **Per-touch L2 decay with geometric correction.** The reference applies
   ``w -= eta * 2 * reg * w`` once per *touch*, interleaved with gradient
@@ -44,6 +42,16 @@ draws negatives sequentially with a margin early-stop, `_rankfm.pyx:244-270`):
   ``w* = E[g] / (2*reg)`` for dense weights touched every sample. Plain
   summed scatter-add with linearized decay would diverge for the dense
   feature weights (``eta * 2*beta * batch_size >> 1``).
+
+  The dense feature tables (``w_if``, ``v_uf``, ``v_if``) are touched by a
+  large share of a batch's rows, so ``c^k`` is near zero and the order of
+  touches decides where they end: the reference leaves them at a moving
+  average of the last ~``1 / (1 - c)`` touches, not at the batch mean. For
+  these tables the recursion is unrolled exactly in the batch's (shuffled)
+  row order, ``w_new = c^k * w + eta * sum_t c^(k - r_t) * g_t`` with
+  ``r_t`` the row's touch rank (`_ordered_feature_grads`). The row tables
+  (``w_i``, ``v_i``, ``v_u``) see a few touches per batch, where
+  ``c^k ~ 1`` and order does not matter.
 
 Parity target is metric parity (hit-rate/recall@k within run variance), not
 bitwise weight parity — per SURVEY.md §2.4 the reference's same-epoch update
@@ -60,12 +68,15 @@ import jax.numpy as jnp
 
 from rankfm_tpu.ops.negatives import (
     bitmap_member, csr_member, sample_negatives, sample_negatives_bitmap)
+from rankfm_tpu.ops.window import (
+    BITS_PER_LANE, block_size, draw_window_blocks, item_pad, window_block_cdf)
 
 MARGIN = 1.0
 
-# timing-ablation hook for tools/probe_candidate_breakdown.py: forces all
-# candidate draws to item 0 (wrong results; isolates gather/scoring cost)
-_PROBE_FIXED_CANDS = False
+
+def _decay_factor(eta, reg):
+    """``c = 1 - 2*reg*eta``, the per-touch L2 decay factor"""
+    return jnp.maximum(1.0 - eta * 2.0 * reg, 1e-8)
 
 
 def _decay_apply(wt, grad, counts, eta, reg):
@@ -73,8 +84,7 @@ def _decay_apply(wt, grad, counts, eta, reg):
 
     ``counts`` is the per-row touch count (float), broadcast over trailing dims.
     """
-    c = 1.0 - eta * 2.0 * reg
-    c = jnp.maximum(c, 1e-8)
+    c = _decay_factor(eta, reg)
     if wt.ndim > counts.ndim:
         counts = counts[..., None]
     ck = jnp.exp(counts * jnp.log(c))
@@ -83,8 +93,56 @@ def _decay_apply(wt, grad, counts, eta, reg):
     return ck * wt + eta * f * grad
 
 
+def _touch_order_weights(touch, c, offset=0.0, total=None):
+    """``c^(k - r)`` for the ``r``-th of ``k`` touches of each column, in
+    row order; 0 where a row does not touch the column.
+
+    ``touch [B, K]`` is 0/1. ``offset [K]`` counts touches by rows that come
+    before this block of rows and ``total [K]`` all touches of the batch
+    (defaults: this block alone), so a batch split over devices gets the
+    ranks of the whole batch."""
+    rank = offset + jnp.cumsum(touch, axis=0)
+    total = rank[-1] if total is None else total
+    return touch * jnp.exp((total - rank) * jnp.log(c))
+
+
+def _ordered_feature_grads(d, row_ok, x_uf_b, dx_if, dv_i, v_u_b, c,
+                           ranks=None):
+    """Gradients of the dense feature tables with each touch weighted by
+    ``c^(k - r_t)`` (see the module docstring), plus their touch counts.
+
+    ``dx_if = x_if[i] - x_if[j]``, ``dv_i = v_i[i] - v_i[j]``. ``ranks``
+    (optional) maps each table's touch matrix to its ``(offset, total)``
+    for a batch split over devices. Returns ``(g_w_if, g_v_uf, g_v_if,
+    k_w_if, k_v_uf, k_v_if)``; the counts are of this block's rows."""
+    ranks = ranks or (lambda t: (0.0, None))
+    t_w_if = jnp.broadcast_to(row_ok[:, None], dx_if.shape)
+    t_v_if = row_ok[:, None] * (dx_if != 0).astype(jnp.float32)
+    t_v_uf = row_ok[:, None] * (x_uf_b != 0).astype(jnp.float32)
+    o_w_if = _touch_order_weights(t_w_if, c, *ranks(t_w_if))
+    o_v_if = _touch_order_weights(t_v_if, c, *ranks(t_v_if))
+    o_v_uf = _touch_order_weights(t_v_uf, c, *ranks(t_v_uf))
+    f32 = jnp.float32
+    g_w_if = jnp.einsum("b,bq->q", d, dx_if * o_w_if,
+                        preferred_element_type=f32)
+    g_v_uf = jnp.einsum("b,bp,bf->pf", d, x_uf_b * o_v_uf, dv_i,
+                        preferred_element_type=f32)
+    g_v_if = jnp.einsum("b,bq,bf->qf", d, dx_if * o_v_if, v_u_b,
+                        preferred_element_type=f32)
+    return (g_w_if, g_v_uf, g_v_if, jnp.sum(t_w_if, axis=0),
+            jnp.sum(t_v_uf, axis=0), jnp.sum(t_v_if, axis=0))
+
+
+def _ordered_decay_apply(wt, grad, counts, eta, c):
+    """``c^k * w + eta * grad`` for a gradient already weighted by touch
+    order (`_ordered_feature_grads`)."""
+    if wt.ndim > counts.ndim:
+        counts = counts[..., None]
+    return jnp.exp(counts * jnp.log(c)) * wt + eta * grad
+
+
 def window_warp_select(pw, nonmem, kcand, kgeo, M):
-    """Shared window-WARP selection (fused-kernel semantics): given pairwise
+    """Shared window-WARP selection: given pairwise
     utilities ``pw [G, Bg, W]`` over each group's negative window and window
     non-membership ``nonmem``, draw the WARP outcome with zero data-dependent
     control flow — the draw count is 1 + Geometric of the window's violator
@@ -143,8 +201,7 @@ def pick_window_groups(B):
 
 def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
                         v_i_pos, v_i_j, x_if_pos, x_if_j, feat_rep_pos,
-                        feat_rep_j, eta, alpha, beta, x_uf_any, x_if_any,
-                        pallas_scatter):
+                        feat_rep_j, eta, alpha, beta, x_uf_any, x_if_any):
     """Gradient accumulation + per-touch decayed table update for a batch of
     selected (u, i, j) pairs — the update expressions of the reference's
     per-sample loop (`_rankfm.pyx:272-326`), batched. Shared by the
@@ -153,82 +210,44 @@ def _apply_pair_updates(w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
     ``d`` is the per-row outer derivative (already masked by ``row_ok`` and
     scaled by sample weight and the WARP multiplier)."""
     d_col = d[:, None]
-    g_w_if = jnp.einsum("b,bq->q", d, x_if_pos - x_if_j,
-                        preferred_element_type=jnp.float32)
-    g_v_uf = jnp.einsum("b,bp,bf->pf", d, x_uf_b, v_i_pos - v_i_j,
-                        preferred_element_type=jnp.float32)
-    g_v_if = jnp.einsum("b,bq,bf->qf", d, x_if_pos - x_if_j, v_u_b,
-                        preferred_element_type=jnp.float32)
-
-    n_ok = jnp.sum(row_ok)
-    if x_if_any:
-        k_w_if = jnp.broadcast_to(n_ok, w["w_if"].shape)
-        # v_if[q] touched when x_if[i,q] != x_if[j,q]  (`_rankfm.pyx:321-326`)
-        k_v_if = jnp.einsum(
-            "b,bq->q", row_ok, (x_if_pos != x_if_j).astype(jnp.float32),
-            preferred_element_type=jnp.float32)
-    else:
-        k_w_if = jnp.zeros_like(w["w_if"])
-        k_v_if = jnp.zeros(w["v_if"].shape[0], dtype=jnp.float32)
-    if x_uf_any:
-        # v_uf[p] touched when x_uf[u,p] != 0  (`_rankfm.pyx:313-318`)
-        k_v_uf = jnp.einsum(
-            "b,bp->p", row_ok, (x_uf_b != 0).astype(jnp.float32),
-            preferred_element_type=jnp.float32)
-    else:
-        k_v_uf = jnp.zeros(w["v_uf"].shape[0], dtype=jnp.float32)
+    # w_if is touched by every row when item features exist, v_if[q] when
+    # x_if[i,q] != x_if[j,q], v_uf[p] when x_uf[u,p] != 0
+    # (`_rankfm.pyx:297-326`)
+    c_f = _decay_factor(eta, beta)
+    g_w_if, g_v_uf, g_v_if, k_w_if, k_v_uf, k_v_if = _ordered_feature_grads(
+        d, row_ok, x_uf_b, x_if_pos - x_if_j, v_i_pos - v_i_j, v_u_b, c_f)
+    if not x_if_any:
+        k_w_if, k_v_if = jnp.zeros_like(k_w_if), jnp.zeros_like(k_v_if)
+    if not x_uf_any:
+        k_v_uf = jnp.zeros_like(k_v_uf)
 
     # d_v_u = (v_i[i] - v_i[j]) + v_ifᵀ(x_if[i] - x_if[j])  (`_rankfm.pyx:292,305`)
     g_u_rows = d_col * ((v_i_pos - v_i_j) + (feat_rep_pos - feat_rep_j))
-    if pallas_scatter:
-        # tiled one-hot MXU scatter (XLA's TPU scatter is ~serial)
-        from rankfm_tpu.ops.scatter import apply_table_update
-
-        okb = row_ok > 0
-        c_a = jnp.maximum(1.0 - eta * 2.0 * alpha, 1e-8)
-        idx_i2 = jnp.concatenate([jnp.where(okb, i, -1),
-                                  jnp.where(okb, j, -1)])
-        gi = d_col * user_rep_b
-        ones = row_ok[:, None]
-        upd_i2 = jnp.concatenate([
-            jnp.concatenate([gi, d_col, ones], axis=1),
-            jnp.concatenate([-gi, -d_col, ones], axis=1),
-        ], axis=0)
-        v_i_new, w_i_new = apply_table_update(
-            w["v_i"], w["w_i"], idx_i2, upd_i2, eta, c_a)
-        idx_u = jnp.where(okb, u, -1)
-        upd_u = jnp.concatenate(
-            [g_u_rows, jnp.zeros_like(d_col), ones], axis=1)
-        v_u_new, _ = apply_table_update(
-            w["v_u"], jnp.zeros(w["v_u"].shape[0], jnp.float32),
-            idx_u, upd_u, eta, c_a)
-    else:
-        g_w_i = jnp.zeros_like(w["w_i"]).at[i].add(d).at[j].add(-d)
-        g_v_i = (
-            jnp.zeros_like(w["v_i"])
-            .at[i].add(d_col * user_rep_b)
-            .at[j].add(-d_col * user_rep_b)
-        )
-        g_v_u = jnp.zeros_like(w["v_u"]).at[u].add(g_u_rows)
-        k_i = jnp.zeros_like(w["w_i"]).at[i].add(row_ok).at[j].add(row_ok)
-        k_u = jnp.zeros(w["v_u"].shape[0], dtype=jnp.float32).at[u].add(row_ok)
-        w_i_new = _decay_apply(w["w_i"], g_w_i, k_i, eta, alpha)
-        v_i_new = _decay_apply(w["v_i"], g_v_i, k_i, eta, alpha)
-        v_u_new = _decay_apply(w["v_u"], g_v_u, k_u, eta, alpha)
+    g_w_i = jnp.zeros_like(w["w_i"]).at[i].add(d).at[j].add(-d)
+    g_v_i = (
+        jnp.zeros_like(w["v_i"])
+        .at[i].add(d_col * user_rep_b)
+        .at[j].add(-d_col * user_rep_b)
+    )
+    g_v_u = jnp.zeros_like(w["v_u"]).at[u].add(g_u_rows)
+    k_i = jnp.zeros_like(w["w_i"]).at[i].add(row_ok).at[j].add(row_ok)
+    k_u = jnp.zeros(w["v_u"].shape[0], dtype=jnp.float32).at[u].add(row_ok)
+    w_i_new = _decay_apply(w["w_i"], g_w_i, k_i, eta, alpha)
+    v_i_new = _decay_apply(w["v_i"], g_v_i, k_i, eta, alpha)
+    v_u_new = _decay_apply(w["v_u"], g_v_u, k_u, eta, alpha)
 
     return {
         "w_i": w_i_new,
         "v_i": v_i_new,
         "v_u": v_u_new,
-        "w_if": _decay_apply(w["w_if"], g_w_if, k_w_if, eta, beta),
-        "v_uf": _decay_apply(w["v_uf"], g_v_uf, k_v_uf, eta, beta),
-        "v_if": _decay_apply(w["v_if"], g_v_if, k_v_if, eta, beta),
+        "w_if": _ordered_decay_apply(w["w_if"], g_w_if, k_w_if, eta, c_f),
+        "v_uf": _ordered_decay_apply(w["v_uf"], g_v_uf, k_v_uf, eta, c_f),
+        "v_if": _ordered_decay_apply(w["v_if"], g_v_if, k_v_if, eta, c_f),
     }
 
 
 def make_train_step(num_items, max_samples, x_uf_any, x_if_any, sample_rounds=8,
-                    sampler="bsearch", pallas_scatter=False, post_reject=False,
-                    max_row_len=None):
+                    sampler="bsearch", post_reject=False, max_row_len=None):
     """Build the jittable single-batch training step.
 
     Static configuration: catalog size, WARP width, whether user/item features
@@ -244,8 +263,7 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any, sample_rounds=8,
     M = max_samples
     log_I = math.log(num_items) if num_items > 1 else 1.0
 
-    # pre-rejection membership tests are [B, M] in-row gathers —
-    # millisecond-class on TPU. With ``post_reject`` (single-device large
+    # pre-rejection membership tests are [B, M] in-row gathers. With ``post_reject`` (single-device large
     # catalogs, member-hit rate h/I << 1%) we instead test ONLY the SELECTED
     # negative post-hoc ([B]-element bitmap lookup, or a CSR binary search
     # when the catalog is too large for a bitmap) and re-select once when it
@@ -261,8 +279,6 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any, sample_rounds=8,
         if post_reject:
             cands = jax.random.randint(key, (B, M), 0, num_items,
                                        dtype=jnp.int32)
-            if _PROBE_FIXED_CANDS:
-                cands = jnp.zeros_like(cands)
             cand_ok = jnp.ones((B, M), bool)
         elif sampler == "bitmap":
             # honor the configured rounds: this pre-filtering branch runs
@@ -296,8 +312,9 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any, sample_rounds=8,
             item_bias = w["w_i"]
             u_mat = v_u_b
             i_mat = w["v_i"]
-        # bf16 MXU passes for the matmuls (f32 accumulate); SGD is robust
-        # to bf16-grade scoring noise and the MXU runs 4x faster
+        # bf16 operands for the scoring matmuls (f32 accumulate): SGD is
+        # robust to bf16-grade scoring noise, and bf16 tensor-core products
+        # run at several times the f32 rate
         if B * num_items <= 2**28:
             # small catalog: ONE [B,2F]x[2F,I] matmul scores everything;
             # in-row take_along_axis beats [B,M,F] 3-D gathers here
@@ -386,31 +403,25 @@ def make_train_step(num_items, max_samples, x_uf_any, x_if_any, sample_rounds=8,
         new_w = _apply_pair_updates(
             w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
             v_i_pos, v_i_j, x_if_pos, x_if_j, feat_rep_pos, feat_rep_j,
-            eta, alpha, beta, x_uf_any, x_if_any, pallas_scatter)
+            eta, alpha, beta, x_uf_any, x_if_any)
         return new_w, ll
 
     return step
 
 
-def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any,
-                           pallas_scatter=False):
-    """Window-WARP training step — the XLA twin of the fused Pallas kernel.
+def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any):
+    """Window-WARP training step.
 
-    Negatives for a batch come from ONE random contiguous block of ``BLK``
-    items (same `pack_history` bit-pack and same geometric-draw-count /
-    uniform-violator / soft-hardest-fallback semantics as
-    `rankfm_tpu.ops.fused`). Scoring the window is a single MXU matmul and
-    every selection pass is O(B * BLK) elementwise — no per-candidate
-    row gathers, no rejection-sampling gathers (both of which lower to
-    millisecond-class gathers on TPU at Instacart scale).
+    Negatives for each row group come from ONE random contiguous block of
+    ``BLK`` items (the `rankfm_tpu.ops.window` bit-pack and block draw),
+    with the geometric-draw-count / uniform-violator / soft-hardest-fallback
+    selection of `window_warp_select`. Scoring the window is one batched
+    matmul and every selection pass is O(B * BLK) elementwise — no
+    per-candidate row gathers and no rejection-sampling gathers.
 
     Signature: ``step(w, x_uf, x_if, packed_hist, u, i, sw, valid, eta,
     alpha, beta, key) -> (w, ll)``.
     """
-    from rankfm_tpu.ops.fused import (
-        BITS_PER_LANE, block_size, draw_window_blocks, item_pad,
-        window_block_cdf)
-
     M = max_samples
     log_I = math.log(num_items) if num_items > 1 else 1.0
     BLK = block_size(num_items)
@@ -439,7 +450,7 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any,
         bits = jnp.tile(rows, (1, 1, BITS_PER_LANE))          # [G, Bg, BLK]
         nonmem = ((bits >> (col >> lg_lw)) & 1) == 0          # pad items = member
 
-        # ---- score each group's window with one batched MXU matmul ----
+        # ---- score each group's window with one batched matmul ----
         v_u_b = w["v_u"][u]                                   # [B, F]
         x_uf_b = x_uf[u]                                      # [B, P]
         user_rep_b = v_u_b + jnp.dot(x_uf_b, w["v_uf"], preferred_element_type=jnp.float32)
@@ -476,7 +487,7 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any,
         ut_ui = jnp.sum(u_mat * i_rows, axis=-1) + item_bias[i]
         pw = ut_ui.reshape(G, Bg)[:, :, None] - scores_win    # [G, Bg, BLK]
 
-        # ---- WARP selection (fused-kernel semantics; shared helper) ----
+        # ---- WARP selection (shared helper) ----
         jloc, sampled, has_j = window_warp_select(pw, nonmem, kcand, kgeo, M)
         j = (blkg[:, None] * BLK + jloc).reshape(B).astype(jnp.int32)
         j = jnp.minimum(j, num_items - 1)  # only reachable when has_j=False
@@ -504,7 +515,7 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any,
         new_w = _apply_pair_updates(
             w, u, i, j, d, row_ok, v_u_b, user_rep_b, x_uf_b,
             v_i_pos, v_i_j, x_if_pos, x_if_j, feat_rep_pos, feat_rep_j,
-            eta, alpha, beta, x_uf_any, x_if_any, pallas_scatter)
+            eta, alpha, beta, x_uf_any, x_if_any)
         return new_w, ll
 
     return step
@@ -513,8 +524,7 @@ def make_window_train_step(num_items, max_samples, x_uf_any, x_if_any,
 @lru_cache(maxsize=32)
 def make_epoch_fn(num_items, max_samples, x_uf_any, x_if_any, batch_size,
                   sample_rounds=8, donate=True, sampler="bsearch",
-                  pallas_scatter=False, step_kind="window",
-                  post_reject=False, max_row_len=None):
+                  step_kind="window", post_reject=False, max_row_len=None):
     """Build the jitted whole-epoch function.
 
     One epoch = device-side shuffle + `lax.scan` over minibatches of the
@@ -524,7 +534,7 @@ def make_epoch_fn(num_items, max_samples, x_uf_any, x_if_any, batch_size,
     ``step_kind`` selects the training step:
 
     * ``'window'`` — `make_window_train_step`; ``hist`` is the blocked
-      16-bit pack from `rankfm_tpu.ops.fused.pack_history_device`. Fastest;
+      16-bit pack from `rankfm_tpu.ops.window.pack_history_device`. Fastest;
       validated at metric parity up to ~8 window blocks.
     * ``'candidate'`` — `make_train_step` (reference-style per-row candidate
       draws); ``hist`` is the ``{'offsets','flat','bitmap'}`` dict. Slower
@@ -541,10 +551,10 @@ def make_epoch_fn(num_items, max_samples, x_uf_any, x_if_any, batch_size,
     """
     if step_kind == "window":
         step = make_window_train_step(num_items, max_samples, x_uf_any,
-                                      x_if_any, pallas_scatter)
+                                      x_if_any)
     else:
         step = make_train_step(num_items, max_samples, x_uf_any, x_if_any,
-                               sample_rounds, sampler, pallas_scatter,
+                               sample_rounds, sampler,
                                post_reject=post_reject,
                                max_row_len=max_row_len)
 

@@ -9,10 +9,10 @@ module is the build's first-class distribution story:
   over ``model``. Small dense feature weights (``w_if``, ``v_uf``, ``v_if``)
   are replicated; their gradient contributions are reduced by XLA (psum over
   both axes) automatically under GSPMD.
-* collectives ride ICI within a slice: gathers of embedding rows from
-  row-sharded tables and the scatter-add of gradients back to owner shards
-  compile to all-to-all / all-gather / psum inserted by XLA — the TPU-native
-  equivalent of the NCCL machinery the reference never had.
+* the mesh shape follows the algorithm alone (how many devices replicate
+  vs shard the tables), not the interconnect: the devices of one GPU host
+  are linked all to all, and XLA lowers the collectives (psum,
+  all-gather, all-to-all) to NCCL.
 * multi-host: build the mesh from ``jax.devices()`` after
   ``jax.distributed.initialize()``; nothing else changes.
 """
@@ -29,18 +29,18 @@ def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
     """Initialize the multi-host runtime (idempotent convenience wrapper).
 
-    On TPU pods the three arguments are discovered from the environment, so
-    ``init_distributed()`` with no arguments is enough on each host; build
-    the mesh from the global ``jax.devices()`` afterwards. This is the
-    TPU-native replacement for the NCCL/MPI process-group bootstrap the
-    reference never had (SURVEY.md §2.6).
+    Pass the coordinator's ``host:port``, the process count and this
+    process's id; under a cluster manager that JAX detects (SLURM, Open
+    MPI) ``init_distributed()`` with no arguments is enough on each host.
+    Build the mesh from the global ``jax.devices()`` afterwards. This is
+    the process-group bootstrap the reference never had (SURVEY.md §2.6).
     """
     if getattr(init_distributed, "_done", False):
         return
     # check for an existing distributed runtime WITHOUT jax.process_count():
     # that call initializes the XLA backends, after which
     # jax.distributed.initialize() always raises — the guard would defeat
-    # the function on every pod host and the swallow below would turn it
+    # the function on every host and the swallow below would turn it
     # into N silently-diverged single-process runs
     try:
         if jax.distributed.is_initialized():
@@ -61,17 +61,19 @@ def init_distributed(coordinator_address=None, num_processes=None,
         # address, port clash) must NOT be swallowed: each host would proceed
         # as an independent single-process run and silently train diverged
         # replicas. Only the zero-argument single-process case (tests,
-        # one-chip dev, no pod metadata to discover) is benign.
+        # one-device dev box, no cluster to discover) is benign.
         if coordinator_address is not None:
             raise
         import os
         if any(os.environ.get(k) for k in
                ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS")):
             raise
-        # TPU pods discover peers from pod metadata rather than those env
-        # vars — a multi-worker hostname list means this host genuinely
+        # cluster managers announce their task count instead of a
+        # coordinator — more than one task means this host genuinely
         # expected a distributed bootstrap
-        if "," in os.environ.get("TPU_WORKER_HOSTNAMES", ""):
+        tasks = [os.environ.get(var, "1")
+                 for var in ("SLURM_NTASKS", "OMPI_COMM_WORLD_SIZE")]
+        if any(t.isdigit() and int(t) > 1 for t in tasks):
             raise
 
 

@@ -22,7 +22,8 @@ step with explicit collectives instead:
   ``data`` (O(B*F), never table-sized), then every shard applies the
   global updates to the rows it owns with the same geometric per-touch
   decay as the single-chip step (`ops/training._decay_apply`); dense
-  feature-weight gradients are psum-reduced over ``data``.
+  feature-weight gradients, weighted by touch order over the whole batch
+  (`ops/training._ordered_feature_grads`), are psum-reduced over ``data``.
 
 Negative sampling uses the CSR sampler (offsets/flat replicate — they are
 interaction-sized, not catalog-sized); the PRNG folds in the data-shard
@@ -42,7 +43,9 @@ import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from rankfm_tpu.ops.negatives import csr_member, sample_negatives
-from rankfm_tpu.ops.training import MARGIN, _decay_apply
+from rankfm_tpu.ops.training import (
+    MARGIN, _decay_apply, _decay_factor, _ordered_decay_apply,
+    _ordered_feature_grads)
 from rankfm_tpu.parallel.train import _MeshKey
 
 ROW_SHARDED = ("w_i", "v_i", "v_u")
@@ -102,28 +105,28 @@ def _tp_apply_updates(w, m_idx, D, x_uf_any, x_if_any, u, i, j, d, row_ok,
     never table-sized) and every shard applies the rows it owns with the
     same geometric per-touch decay as the single-chip step."""
     d_col = d[:, None]
-    g_w_if = jnp.einsum("b,bq->q", d, x_if_pos - x_if_j,
-                        preferred_element_type=jnp.float32)
-    g_v_uf = jnp.einsum("b,bp,bf->pf", d, x_uf_b, v_i_pos - v_i_j,
-                        preferred_element_type=jnp.float32)
-    g_v_if = jnp.einsum("b,bq,bf->qf", d, x_if_pos - x_if_j, v_u_b,
-                        preferred_element_type=jnp.float32)
-    n_ok = jnp.sum(row_ok)
-    if x_if_any:
-        k_v_if = jnp.einsum(
-            "b,bq->q", row_ok, (x_if_pos != x_if_j).astype(jnp.float32),
-            preferred_element_type=jnp.float32)
-    else:
-        k_v_if = jnp.zeros(w["v_if"].shape[0], jnp.float32)
-    if x_uf_any:
-        k_v_uf = jnp.einsum(
-            "b,bp->p", row_ok, (x_uf_b != 0).astype(jnp.float32),
-            preferred_element_type=jnp.float32)
-    else:
-        k_v_uf = jnp.zeros(w["v_uf"].shape[0], jnp.float32)
+
+    def ranks(touch):
+        """touches by the rows of earlier data shards, and by the whole
+        batch: the batch's row order is the shards' rows in turn"""
+        if D == 1:
+            return 0.0, None
+        counts = jax.lax.all_gather(jnp.sum(touch, axis=0), "data")
+        before = jnp.arange(D)[:, None] < jax.lax.axis_index("data")
+        return (jnp.sum(jnp.where(before, counts, 0.0), axis=0),
+                jnp.sum(counts, axis=0))
+
+    c_f = _decay_factor(eta, beta)
+    g_w_if, g_v_uf, g_v_if, k_w_if, k_v_uf, k_v_if = _ordered_feature_grads(
+        d, row_ok, x_uf_b, x_if_pos - x_if_j, v_i_pos - v_i_j, v_u_b, c_f,
+        ranks)
     if D > 1:
-        g_w_if, g_v_uf, g_v_if, n_ok, k_v_if, k_v_uf = jax.lax.psum(
-            (g_w_if, g_v_uf, g_v_if, n_ok, k_v_if, k_v_uf), "data")
+        g_w_if, g_v_uf, g_v_if, k_w_if, k_v_if, k_v_uf = jax.lax.psum(
+            (g_w_if, g_v_uf, g_v_if, k_w_if, k_v_if, k_v_uf), "data")
+    if not x_if_any:
+        k_w_if, k_v_if = jnp.zeros_like(k_w_if), jnp.zeros_like(k_v_if)
+    if not x_uf_any:
+        k_v_uf = jnp.zeros_like(k_v_uf)
 
     g_u_rows = d_col * ((v_i_pos - v_i_j) + (feat_rep_pos - feat_rep_j))
     gi_rows = d_col * user_rep_b
@@ -156,12 +159,9 @@ def _tp_apply_updates(w, m_idx, D, x_uf_any, x_if_any, u, i, j, d, row_ok,
         "w_i": _decay_apply(w["w_i"], g_w_i, k_i, eta, alpha),
         "v_i": _decay_apply(w["v_i"], g_v_i, k_i, eta, alpha),
         "v_u": _decay_apply(w["v_u"], g_v_u, k_u, eta, alpha),
-        "w_if": _decay_apply(
-            w["w_if"], g_w_if,
-            jnp.broadcast_to(n_ok, w["w_if"].shape) if x_if_any
-            else jnp.zeros_like(w["w_if"]), eta, beta),
-        "v_uf": _decay_apply(w["v_uf"], g_v_uf, k_v_uf, eta, beta),
-        "v_if": _decay_apply(w["v_if"], g_v_if, k_v_if, eta, beta),
+        "w_if": _ordered_decay_apply(w["w_if"], g_w_if, k_w_if, eta, c_f),
+        "v_uf": _ordered_decay_apply(w["v_uf"], g_v_uf, k_v_uf, eta, c_f),
+        "v_if": _ordered_decay_apply(w["v_if"], g_v_if, k_v_if, eta, c_f),
     }
 
 
@@ -304,7 +304,7 @@ def _make_tp_window_step(mesh, num_items, max_samples, x_uf_any, x_if_any):
     over ``data`` for the owner-shard updates. ``hist`` is
     ``{'packed': [RU, W] int32}`` row-sharded over ``model``
     (`pad_packed_hist`)."""
-    from rankfm_tpu.ops.fused import (
+    from rankfm_tpu.ops.window import (
         BITS_PER_LANE, block_size, draw_window_blocks, window_block_cdf)
     from rankfm_tpu.ops.training import pick_window_groups, window_warp_select
 
@@ -350,9 +350,8 @@ def _make_tp_window_step(mesh, num_items, max_samples, x_uf_any, x_if_any):
         # window scores, WARP selection) is computed for this shard's
         # contiguous 1/m of the groups only, and the per-row outcomes
         # (jloc/sampled/has_j — O(B) ints) ride ONE all_gather back.
-        # Replicating that math across model was measured at +179% on the
-        # shared-core CPU mesh vs the candidate TP's +80%
-        # (tools/probe_mesh_scaling.py) and is wasted FLOPs on real chips.
+        # Replicating that math across model would repeat the same
+        # [*, BLK]-wide work on every model shard.
         msz = mesh.shape["model"]
         split = msz > 1 and G % msz == 0
         Gs = G // msz if split else G
@@ -426,7 +425,7 @@ def _make_tp_window_step(mesh, num_items, max_samples, x_uf_any, x_if_any):
         )                                                       # [Gs, Bg, BLK]
         pw = shard_rows(ut_ui).reshape(Gs, Bg)[:, :, None] - scores_win
 
-        # ---- WARP selection (shared helper; fused-kernel semantics).
+        # ---- WARP selection (shared helper).
         # Per-shard PRNG fold so two shards' groups never share the same
         # uniforms; the per-row outcomes all_gather back in group order
         # (each shard owns a CONTIGUOUS group range, and rows are laid out

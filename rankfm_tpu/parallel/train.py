@@ -4,23 +4,22 @@
 Two regimes (SURVEY.md §2.6; the scaling-book recipe of picking the
 parallelism by where the bytes live):
 
-* **DP — tables fit per chip** (the overwhelmingly common case: even a
+* **DP — tables fit per device** (the overwhelmingly common case: even a
   1M x 64 f32 item table is 256 MB). Tables REPLICATE, the batch shards
-  over every mesh axis, each device runs the unmodified single-chip step
-  on its shard with its own fold_in'd PRNG stream, and the only
-  collective is ONE psum of the weight DELTAS per batch (tables are
-  MB-class; ICI moves them in ~tens of microseconds). Expressed as an
+  over every mesh axis, each device runs the unmodified single-device
+  step on its shard with its own fold_in'd PRNG stream, and the only
+  collective is ONE psum of the weight DELTAS per batch. Expressed as an
   explicit `shard_map` — `make_dp_epoch_fn` — because GSPMD cannot know
   the deltas are sparse-rank-deficient and would schedule per-gather
   exchanges instead.
 
-* **TP — tables bigger than a chip**: row-sharded tables over ``model``,
+* **TP — tables bigger than a device's budget**: row-sharded tables over ``model``,
   batch over ``data``, GSPMD lowering gathers to all-gather/all-to-all
   exchanges and scatters to psums back to owner shards
   (`make_sharded_train_step` / the ``dp=False`` epoch path).
 
 `make_sharded_epoch_fn` picks DP automatically when the weight pytree fits
-the per-chip budget.
+the per-device budget (`dp_table_budget`).
 """
 
 from __future__ import annotations
@@ -247,22 +246,47 @@ def _cached_dp_epoch(mesh_key, num_items, max_samples, x_uf_any, x_if_any,
                    out_shardings=(rep_sh, rep_sh))
 
 
-# weight pytrees under this many bytes replicate per chip and train
-# data-parallel (deltas psum'd once per batch); larger tables row-shard
+# A replicated weight pytree may take this share of one device's memory
+# (`memory_stats()["bytes_limit"]`, the allocator's limit): each replica
+# also holds table-sized gradient tables, the updated copy and the
+# delta-psum buffers during a step, several times the pytree itself. The
+# share is an estimate from that count, not a measurement: no fit near
+# the limit it sets has been run.
+DP_MEMORY_SHARE = 1 / 8
+# The DP budget where the backend reports no device memory (the CPU
+# backend, as in the tests): weight pytrees up to this many bytes replicate.
 DP_TABLE_BYTES = 256 * 2**20
 
 
-def uses_dp(mesh, batch_size, table_bytes):
-    """Single source of truth for the DP-vs-GSPMD choice: data-parallel
-    (replicated tables, delta-psum) needs the weight pytree to fit per chip
-    AND the batch to shard evenly over the devices. Callers that PLACE
-    weights (replicated vs row-sharded) must consult this too — a placement
-    that disagrees with the epoch fn's in_shardings is a resharding (or an
-    error) at the first call."""
+def dp_table_budget(mesh):
+    """Bytes a weight pytree may take and still train data-parallel on
+    ``mesh``: `DP_MEMORY_SHARE` of the smallest local device's memory limit,
+    or `DP_TABLE_BYTES` when no device reports one."""
+    limits = []
+    for d in mesh.devices.flat:
+        try:
+            stats = d.memory_stats()
+        except Exception:  # non-addressable device of another process
+            stats = None
+        if stats and stats.get("bytes_limit"):
+            limits.append(int(stats["bytes_limit"]))
+    if not limits:
+        return DP_TABLE_BYTES
+    return int(min(limits) * DP_MEMORY_SHARE)
+
+
+def uses_dp(mesh, batch_size, table_bytes, budget):
+    """Single source of truth for the DP-vs-TP choice: data-parallel
+    (replicated tables, delta-psum) needs the weight pytree to fit the
+    per-device ``budget`` (`dp_table_budget`, worked out by the caller)
+    AND the batch to shard evenly over the devices. Reads only the mesh's
+    shape. Callers that PLACE weights (replicated vs row-sharded) must
+    consult this too — a placement that disagrees with the epoch fn's
+    in_shardings is a resharding (or an error) at the first call."""
     n_dev = 1
     for v in mesh.shape.values():
         n_dev *= v
-    return table_bytes <= DP_TABLE_BYTES and batch_size % n_dev == 0
+    return table_bytes <= budget and batch_size % n_dev == 0
 
 
 def make_sharded_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any,
@@ -275,17 +299,17 @@ def make_sharded_epoch_fn(mesh, num_items, max_samples, x_uf_any, x_if_any,
     ``'candidate'``).
 
     ``dp=None`` picks data-parallel (replicated tables, one delta-psum per
-    batch) when ``table_bytes`` fits `DP_TABLE_BYTES`, else the row-sharded
+    batch) when ``table_bytes`` fits `dp_table_budget`, else the row-sharded
     GSPMD path. Pass ``dp=True/False`` to force.
 
     ``dp_sync_every=K`` accumulates K batches of local updates per replica
     before the delta-psum (local SGD): K-fold less collective volume — the
-    lever when hosts are linked by DCN rather than ICI. K = 1 (default)
-    syncs every batch."""
+    lever when hosts are linked by a network slower than the links between
+    the devices of one host. K = 1 (default) syncs every batch."""
     if dp is None:
-        dp = uses_dp(mesh, batch_size, table_bytes)
+        dp = uses_dp(mesh, batch_size, table_bytes, dp_table_budget(mesh))
     else:
-        dp = dp and uses_dp(mesh, batch_size, 0)
+        dp = dp and uses_dp(mesh, batch_size, 0, 0)
     if dp:
         return _cached_dp_epoch(_MeshKey(mesh), num_items, max_samples,
                                 bool(x_uf_any), bool(x_if_any), batch_size,

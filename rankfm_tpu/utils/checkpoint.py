@@ -23,9 +23,8 @@ _WEIGHT_KEYS = ("w_i", "w_if", "v_u", "v_i", "v_uf", "v_if")
 # re-attach a mesh after load if they want sharded execution)
 _HYPERS = ("factors", "loss", "max_samples", "alpha", "beta", "sigma",
            "learning_rate", "learning_schedule", "learning_exponent",
-           "batch_size", "seed", "sample_rounds", "neg_sampler", "use_fused",
-           "train_step", "n_windows", "tail_windows", "shuffle_layouts",
-           "dp_sync_every")
+           "batch_size", "seed", "sample_rounds", "neg_sampler",
+           "train_step", "dp_sync_every")
 
 
 def _id_array(vals, kind):
@@ -78,7 +77,14 @@ def load_model(cls, path, allow_pickle=False):
     hyper = json.loads(str(data["hyper_json"]))
     positional = ("factors", "loss", "max_samples", "alpha", "beta", "sigma",
                   "learning_rate", "learning_schedule", "learning_exponent")
-    extras = {k: v for k, v in hyper.items() if k not in positional}
+    # checkpoints from older versions carry constructor options that no
+    # longer exist (use_fused, n_windows, tail_windows, shuffle_layouts);
+    # they only tuned a removed training engine, so they are ignored. A
+    # 'mixed' train_step resolved exactly like 'auto' off that engine.
+    extras = {k: v for k, v in hyper.items()
+              if k in _HYPERS and k not in positional}
+    if extras.get("train_step") == "mixed":
+        extras["train_step"] = "auto"
     model = cls(**{k: hyper[k] for k in positional}, **extras)
     if "training_log_json" in data:
         model.training_log_ = json.loads(str(data["training_log_json"]))

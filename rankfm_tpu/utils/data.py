@@ -2,7 +2,7 @@
 
 Mirrors the ingestion semantics of the reference
 (`/root/reference/rankfm/utils.py:5-18`, `/root/reference/rankfm/rankfm.py:140-211`)
-while producing TPU-friendly static-shape device arrays:
+while producing static-shape device arrays:
 
 * interactions become a dense ``int32 [N, 2]`` array of internal indices,
 * per-user item histories become a CSR pair ``(offsets [U+1], flat_items [nnz])``

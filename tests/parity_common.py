@@ -114,3 +114,69 @@ def oracle_metrics(model, train, test, epochs, k=10, seed=1492,
     scores = bias[None, :] + user_rep @ w["v_i"].T + w["v_u"] @ feat_rep.T
     return _metrics_from_scores(
         scores, clone.item_id.values, clone.user_id.values, test, k=k)
+
+
+# ---------------------------------------------------------------------------
+# serving reference: the reduced FM in float64 numpy, and the score-based
+# top-k comparison that predict / recommend / similar_* are held to
+# ---------------------------------------------------------------------------
+
+def reference_weights(model):
+    """The model's weights and feature matrices as float64 numpy."""
+    w = {k: np.asarray(v, dtype=np.float64) for k, v in model._weights.items()}
+    return w, np.asarray(model.x_uf, np.float64), np.asarray(model.x_if,
+                                                             np.float64)
+
+
+def reference_scores(w, x_uf, x_if, users=None):
+    """float64 reduced-FM utilities ``[len(users), I]`` (`_rankfm.pyx:48-89`):
+    bias_i + user_rep.v_i + v_u.(x_if v_if), with no (x_uf v_uf).(x_if v_if)
+    cross term."""
+    users = np.arange(w["v_u"].shape[0]) if users is None else users
+    bias = w["w_i"] + x_if @ w["w_if"]
+    user_rep = w["v_u"][users] + x_uf[users] @ w["v_uf"]
+    feat_rep = x_if @ w["v_if"]
+    return bias[None, :] + user_rep @ w["v_i"].T + w["v_u"][users] @ feat_rep.T
+
+
+def reference_pair_scores(w, x_uf, x_if, u, i):
+    """float64 utilities of index pairs ``(u[k], i[k])``."""
+    bias = w["w_i"][i] + x_if[i] @ w["w_if"]
+    user_rep = w["v_u"][u] + x_uf[u] @ w["v_uf"]
+    feat_rep = x_if[i] @ w["v_if"]
+    return (bias + np.sum(user_rep * w["v_i"][i], axis=1)
+            + np.sum(w["v_u"][u] * feat_rep, axis=1))
+
+
+def reference_similarity(v, feats, v_feat, rows):
+    """float64 latent-rep dot products ``[len(rows), N]`` with each query
+    row's own entry set to -inf (the `similar_*` contract)."""
+    reps = v + feats @ v_feat
+    sims = reps[rows] @ reps.T
+    sims[np.arange(len(rows)), rows] = -np.inf
+    return sims
+
+
+def topk_score_error(ref, got_idx, excluded=None):
+    """Hold a returned top-k list to the reference by SCORE, not by id.
+
+    ``ref [R, N]`` are reference scores, ``got_idx [R, k]`` the returned
+    indices (-1 = empty slot), ``excluded [R, N]`` bool marks what must not
+    come back (seen items). Returns the largest ``|ref[r, got[r, j]] -
+    kth_best_ref[r, j]|`` — zero when the list holds the reference's j-th
+    best score at every rank j, so near-ties between ids never count.
+    Raises AssertionError when an excluded or missing slot comes back while
+    the reference had an allowed item for it."""
+    ref = np.array(ref, dtype=np.float64)
+    if excluded is not None:
+        ref[excluded] = -np.inf
+    k = got_idx.shape[1]
+    best = -np.sort(-ref, axis=1)[:, :k]
+    rows = np.arange(ref.shape[0])[:, None]
+    filled = got_idx >= 0
+    assert (filled == np.isfinite(best)).all(), "empty slots disagree"
+    got = np.where(filled, ref[rows, np.where(filled, got_idx, 0)], -np.inf)
+    assert np.isfinite(got[filled]).all(), "an excluded item came back"
+    if not filled.any():
+        return 0.0
+    return float(np.max(np.abs(got[filled] - best[filled])))

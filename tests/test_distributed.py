@@ -13,7 +13,8 @@ Two layers here:
 * in-process unit tests of the raise/swallow policy with
   `jax.distributed.initialize` monkeypatched to fail, pinning WHEN a
   bootstrap failure is fatal (explicit coordinator, coordinator env vars,
-  multi-worker TPU metadata) vs benign (zero-arg single-process dev box).
+  a cluster manager's multi-task count) vs benign (zero-arg single-process
+  dev box).
 """
 import os
 import subprocess
@@ -111,19 +112,22 @@ def test_init_distributed_raises_when_env_expects_cluster(monkeypatch, var):
 
 
 def test_init_distributed_raises_on_multiworker_pod_metadata(monkeypatch):
+    """a cluster manager that announces several tasks (SLURM, Open MPI)
+    expected a distributed bootstrap: its failure is fatal"""
     init, _ = _fresh_init_distributed(monkeypatch, fail=True)
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "host-a,host-b")
+    monkeypatch.setenv("SLURM_NTASKS", "2")
     with pytest.raises(RuntimeError, match="simulated"):
         init()
 
 
 def test_init_distributed_swallows_zero_arg_dev_box(monkeypatch):
-    """no coordinator, no cluster env, single-worker metadata: the zero-arg
-    failure is the benign tests/one-chip case and must be swallowed"""
+    """no coordinator, no cluster env, a single-task cluster: the zero-arg
+    failure is the benign tests/one-device case and must be swallowed"""
     init, calls = _fresh_init_distributed(monkeypatch, fail=True)
-    for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS"):
+    for var in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+                "OMPI_COMM_WORLD_SIZE"):
         monkeypatch.delenv(var, raising=False)
-    monkeypatch.setenv("TPU_WORKER_HOSTNAMES", "solo-host")
+    monkeypatch.setenv("SLURM_NTASKS", "1")
     init()  # must not raise
     assert calls == [{}]
 

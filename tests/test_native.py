@@ -1,11 +1,16 @@
 """Native C++ data-pipeline tests: results must be identical to the numpy /
 pandas paths."""
 
+import ctypes
+import platform
+import subprocess
+
 import numpy as np
 import pandas as pd
 import pytest
 
-from rankfm_tpu import native
+from parity_common import make_latent_dataset
+from rankfm_tpu import RankFM, native
 from rankfm_tpu.utils import data
 
 
@@ -150,3 +155,32 @@ def test_uint64_ids_small_range_take_native_path():
     ids = np.array([3, 1, 2], dtype=np.uint64)
     iv = data._int64_view(ids)
     assert iv is not None and iv.dtype == np.int64
+
+
+def test_oracle_fit_is_the_same_for_every_x86_target(tmp_path, monkeypatch):
+    """the oracle, built with the package's flags for an AVX2 target and
+    for this host, trains bitwise the same weights: the reference must not
+    move with the machine it is built on (with multiply-add contraction
+    left on, the F=20 loops below differ in the last bit)"""
+    assert platform.machine() in ("x86_64", "AMD64")
+    train, _ = make_latent_dataset(np.random.default_rng(3), n_users=400,
+                                   n_items=600, per_user=40)
+    model = RankFM(factors=20, loss="warp", max_samples=20, seed=3)
+    model._init_all(train)
+    w0 = {k: np.asarray(v) for k, v in model._weights.items()}
+    out = {}
+    for march in ("native", "x86-64-v3"):
+        so = tmp_path / f"oracle-{march}.so"
+        flags = [f if not f.startswith("-march=") else f"-march={march}"
+                 for f in native._CXXFLAGS]
+        subprocess.run(["g++", *flags, "-o", str(so), native.ORACLE_SRC],
+                       check=True, capture_output=True)
+        monkeypatch.setattr(native, "_oracle_lib",
+                            native.bind_oracle(ctypes.CDLL(str(so))))
+        out[march], _ = native.oracle_fit(
+            model.interactions, model.sample_weight, model._ui_offsets,
+            model._ui_items, model.x_uf, model.x_if, w0, 0.01, 0.1, 0.1,
+            "invscaling", 0.25, 20, 2, 3)
+    for k in w0:
+        np.testing.assert_array_equal(out["native"][k], out["x86-64-v3"][k],
+                                      err_msg=k)

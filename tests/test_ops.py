@@ -238,9 +238,9 @@ def test_train_step_moves_pair_apart():
 
 
 def test_window_train_step_moves_pair_apart():
-    """the window-WARP step (XLA twin of the fused kernel) must learn too"""
+    """the window-WARP step must learn too"""
     from rankfm_tpu.ops.training import make_window_train_step
-    from rankfm_tpu.ops.fused import pack_history
+    from rankfm_tpu.ops.window import pack_history
 
     rng = np.random.default_rng(6)
     U, I, F = 4, 8, 4

@@ -1,4 +1,4 @@
-"""Metric-level learning parity: the batched TPU trainer must reach the same
+"""Metric-level learning parity: the batched trainer must reach the same
 ranking quality as the reference's sequential per-sample SGD.
 
 Since the Cython reference can't run here, its training loop is implemented
@@ -11,9 +11,10 @@ twice as independent oracles from the documented semantics (SURVEY.md §2.4 /
   parity is checked AT SCALE, with features, sample weights, and both loss
   flavors, across all five ranking metrics.
 
-Parity gate: |build - oracle| <= 0.02 absolute on every metric (the batched
-trainer is expected to be at parity or better; see BENCHMARKS.md for the
-measured deltas).
+Parity gates: |build - oracle| <= 0.02 absolute on every metric for the
+candidate step (reference-exact sampling); the window step keeps +-0.02 on
+precision/recall and +-0.06 on the rank-sensitive metrics. The scaled gates
+are ``gpu``-marked: on the XLA CPU backend one config takes minutes.
 """
 
 import numpy as np
@@ -26,16 +27,11 @@ METRICS = ("hit_rate", "reciprocal_rank", "discounted_cumulative_gain",
            "precision", "recall")
 # reference-exact sampling (candidate step): every metric within +-0.02
 TIGHT = {m: 0.02 for m in METRICS}
-# flagship fused path, round-3 gates: the chunk-256 window kernel plus the
-# auto mixed tail on <= 2-block catalogs measure within +-0.025 of the
-# sequential oracle on every metric across 3 model seeds at both the
-# small parity config and full ML-1M scale
-# (tools/probe_dispatch_smallcat.py, tools/probe_chunk_quality.py) —
-# round 2's 0.06/0.07 bands were the chunk-512 window-correlation gap,
-# closed, not re-documented.
-FUSED = {"hit_rate": 0.03, "reciprocal_rank": 0.03,
-         "discounted_cumulative_gain": 0.03, "precision": 0.02,
-         "recall": 0.02}
+# window step (windowed negatives): precision/recall at parity, a wider band
+# on the rank-sensitive metrics for the windowed-negative gap
+WINDOW = {"hit_rate": 0.06, "reciprocal_rank": 0.06,
+          "discounted_cumulative_gain": 0.06, "precision": 0.02,
+          "recall": 0.02}
 
 
 def _require_oracle():
@@ -130,7 +126,7 @@ def test_batched_trainer_matches_sequential_oracle_quality():
         rng=np.random.default_rng(7))
     hr_oracle = _oracle_hit_rate(w_i, v_u, v_i, train, test)
 
-    # batched TPU-style trainer through the public API
+    # batched trainer through the public API
     model = RankFM(factors=factors, loss='warp', max_samples=5,
                    learning_rate=0.1, learning_schedule='invscaling',
                    batch_size=256)
@@ -162,23 +158,13 @@ def test_cpp_oracle_matches_numpy_oracle():
     assert m["hit_rate"] > 0.3
 
 
-import jax  # noqa: E402
-
-
 @pytest.mark.slow
-@pytest.mark.skipif(jax.devices()[0].platform != "tpu",
-                    reason="scaled parity runs on TPU (make test-tpu); the "
-                           "XLA-CPU fit takes ~8 min per config")
+@pytest.mark.gpu
 @pytest.mark.parametrize("loss,max_samples,features,weights,step,gates", [
     # reference-exact candidate sampling: tight +-0.02 on every metric
     ("warp", 10, False, True, "candidate", TIGHT),   # ML-1M headline shape
     ("warp", 10, True, False, "candidate", TIGHT),   # side features
     ("bpr", 10, False, False, "candidate", TIGHT),
-    # flagship fused path on the same data (documented windowed-negative
-    # tradeoff; precision/recall must stay at parity)
-    ("warp", 10, False, True, "auto", FUSED),
-    # round 2: side features FUSED into the kernel (auto at 2 blocks)
-    ("warp", 10, True, False, "auto", FUSED),
 ])
 def test_scaled_parity_vs_cpp_oracle(loss, max_samples, features, weights,
                                      step, gates):
@@ -191,10 +177,10 @@ def test_scaled_parity_vs_cpp_oracle(loss, max_samples, features, weights,
     sw = (rng.integers(1, 4, len(train)).astype(np.float32)
           if weights else None)
 
-    extra = {} if step == "auto" else dict(use_fused=False, train_step=step)
     model = RankFM(factors=16, loss=loss, max_samples=max_samples,
                    alpha=0.01, beta=0.1, sigma=0.1, learning_rate=0.1,
-                   learning_schedule='invscaling', seed=1492, **extra)
+                   learning_schedule='invscaling', seed=1492,
+                   train_step=step)
     model.fit(train, user_features=uf, item_features=itf,
               sample_weight=sw, epochs=10)
     build = evaluation.compute(model, test, k=10)
@@ -210,41 +196,14 @@ def test_scaled_parity_vs_cpp_oracle(loss, max_samples, features, weights,
 
 
 @pytest.mark.slow
-@pytest.mark.skipif(jax.devices()[0].platform != "tpu",
-                    reason="scaled parity runs on TPU (make test-tpu)")
-def test_scaled_parity_mixed_large_catalog():
-    """>8-window-block regime (the one where pure windowed negatives lose
-    rank sharpness): the MIXED schedule — fused epochs + candidate-step
-    tail, the 'auto' default there — must stay within +-0.03 of the
-    sequential reference-semantics oracle on every metric."""
-    _require_oracle()
-    rng = np.random.default_rng(13)
-    train, test = make_latent_dataset(rng, n_users=2000, n_items=10_000,
-                                      per_user=60, sharp=3.0)
-    model = RankFM(factors=16, loss="warp", max_samples=10, alpha=0.01,
-                   beta=0.1, sigma=0.1, learning_rate=0.1,
-                   learning_schedule="invscaling", seed=1492)
-    model.fit(train, epochs=18)            # auto -> mixed: 15 fused + 3 tail
-    build = evaluation.compute(model, test, k=10)
-    oracle = oracle_metrics(model, train, test, epochs=18)
-    assert oracle["hit_rate"] > 0.2, oracle
-    deltas = {k: round(build[k] - oracle[k], 4) for k in METRICS}
-    for m in METRICS:
-        assert abs(build[m] - oracle[m]) <= 0.03, (m, deltas)
-
-
-@pytest.mark.slow
-@pytest.mark.skipif(jax.devices()[0].platform != "tpu",
-                    reason="scaled parity runs on TPU (make test-tpu)")
+@pytest.mark.gpu
 def test_full_ml1m_scale_parity_headline_config():
     """FULL ML-1M scale (6,040 users x 3,706 items x ~750k rows) at the
     reference's exact headline configuration (README.md:110 /
     movielens.ipynb cells 30-32: f=20, WARP ms=20, alpha=0.01, lr=0.1,
-    invscaling, 20 epochs). The fused window kernel (auto at 4 window
-    blocks, chunk 256) must match the sequential reference-semantics
-    oracle within +-0.03 on every metric (+-0.02 precision/recall) —
-    measured worst-over-3-seeds -0.021 DCG at 54x throughput
-    (tools/probe_chunk_quality.py)."""
+    invscaling, 20 epochs). The window step (auto at 4 window blocks) must
+    match the sequential reference-semantics oracle within the WINDOW
+    bands (chip_smoke.py phase 2 runs the same gate)."""
     _require_oracle()
     rng = np.random.default_rng(1492)
     # ~748k train rows; sharp=1.2 puts the oracle's metric levels right at
@@ -256,9 +215,10 @@ def test_full_ml1m_scale_parity_headline_config():
                    sigma=0.1, learning_rate=0.1,
                    learning_schedule="invscaling", seed=1492)
     model.fit(train, epochs=20)
+    assert model.last_fit_plan_.step_kind == "window"
     build = evaluation.compute(model, test, k=10)
     oracle = oracle_metrics(model, train, test, epochs=20)
     assert 0.75 < oracle["hit_rate"] < 0.95, oracle
     deltas = {k: round(build[k] - oracle[k], 4) for k in METRICS}
     for m in METRICS:
-        assert abs(build[m] - oracle[m]) <= FUSED[m], (m, deltas)
+        assert abs(build[m] - oracle[m]) <= WINDOW[m], (m, deltas)

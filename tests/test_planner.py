@@ -1,128 +1,75 @@
-"""Direct unit tests of the training-dispatch planner (VERDICT r3 next #3):
-the regime matrix — catalog size band x backend x mesh placement x knobs —
-pinned against `plan_fit` as a pure function, no devices, no fitting.
+"""Direct unit tests of the training-dispatch planner: the regime matrix —
+catalog size band x loss x mesh placement x knobs — pinned against
+`plan_fit` as a pure function, no devices, no fitting.
 
-Regime bands (window blocks of the catalog, `ops/fused.block_size`):
-  <= 2 blocks  : tiny catalogs (window path seed-fragile)
-  3..8 blocks  : ML-1M class (window parity band)
-  9..64 blocks : Instacart class (fused + candidate tail)
-  > 64 blocks  : web-scale (fused ineligible, candidate step)
+Regime bands (window blocks of the catalog, `ops/window.num_blocks`):
+  <= 2 blocks  : tiny catalogs (candidate step)
+  3..8 blocks  : ML-1M class (window step)
+  9..64 blocks : Instacart class (candidate step)
+  > 64 blocks  : web-scale (candidate step)
 """
+
+import types
 
 import numpy as np
 import pytest
 
 from rankfm_tpu.models.planner import FitSpec, FitPlan, plan_fit
-from rankfm_tpu.ops import fused as fused_mod
+from rankfm_tpu.ops.window import num_blocks
 
 
 def spec(num_items=3706, num_users=6040, n=749_724, factors=20,
-         loss="warp", max_samples=20, epochs=20, on_tpu=True, **kw):
+         loss="warp", max_samples=20, epochs=20, **kw):
     return FitSpec(n=n, num_users=num_users, num_items=num_items,
                    factors=factors, loss=loss, max_samples=max_samples,
-                   epochs=epochs, on_tpu=on_tpu, **kw)
+                   epochs=epochs, **kw)
 
 
-def nblk(num_items):
-    return fused_mod.item_pad(num_items) // fused_mod.block_size(num_items)
+# ---- catalog-band x loss matrix (single device) ----
+
+BANDS = {
+    # name: (users, items, rows, factors, max_samples, blocks, step)
+    "tiny": (2400, 1200, 90_000, 16, 10, (1, 2), "candidate"),
+    "ml1m": (6040, 3706, 749_724, 20, 20, (3, 8), "window"),
+    "instacart": (10_000, 33_362, 518_000, 50, 50, (9, 64), "candidate"),
+    "webscale": (100_000, 1_000_000, 5_000_000, 64, 10, (65, 10**6),
+                 "candidate"),
+}
 
 
-# ---- catalog-band x engine matrix (single device) ----
-
-def test_ml1m_band_tpu_runs_fused_window_no_tail():
-    p = plan_fit(spec())                       # 3706 items -> 4 blocks
-    assert nblk(3706) == 4
-    assert p.fused and p.table_mode == "f32" and not p.table_bf16
-    assert p.n_tail == 0 and p.n_main == 20
-    assert p.chunk == 256                      # the round-3 quality chunk
-    assert p.user_block == 1024                # round-4 negative result: see
-    assert p.batch_size % 128 == 0             # fused.pick_user_block
+@pytest.mark.parametrize("loss", ["bpr", "warp"])
+@pytest.mark.parametrize("band", sorted(BANDS))
+def test_regime_matrix(band, loss):
+    U, I, n, F, ms, (lo, hi), step = BANDS[band]
+    p = plan_fit(spec(num_items=I, num_users=U, n=n, factors=F,
+                      max_samples=ms, loss=loss,
+                      nnz_hist=int(0.9 * n)))
+    assert lo <= p.nblk <= hi and p.nblk == num_blocks(I)
+    assert p.step_kind == step
+    assert p.max_samples == (1 if loss == "bpr" else ms)
     assert p.placement == "single" and p.n_dev == 1
-
-
-def test_ml1m_band_gets_chunk_tail_at_parity_layout():
-    """round-5 default: the last max(1, epochs//6) fused epochs re-run
-    at the oracle-parity layout (chunk128 @ UB256, SUB 8) — worst-seed
-    -0.004 HR at ~54x vs -0.009 at 55x without the tail
-    (tools/probe_chunk_tail.py, BENCHMARKS.md round-5 frontier sweep)"""
-    p = plan_fit(spec())
-    assert p.chunk_tail == 3                   # 20 epochs -> 3-epoch tail
-    assert (p.tail_chunk, p.tail_user_block, p.tail_sub) == (128, 256, 8)
-    # short fits still close with at least one parity epoch
-    assert plan_fit(spec(epochs=2)).chunk_tail == 1
-    # 1-epoch fits run the main layout only (program reuse with the
-    # production main engine)
-    assert plan_fit(spec(epochs=1)).chunk_tail == 0
-
-
-def test_chunk_tail_gated_off_where_unsupported():
-    # side features ride along (run_fused re-pads the feature blocks at
-    # the tail layout; featured oracle A/B in tools/probe_feature_tail.py)
-    assert plan_fit(spec(x_if_any=True)).chunk_tail == 3
-    assert plan_fit(spec(x_uf_any=True)).chunk_tail == 3
-    # another tail engine already runs (mixed schedule on big catalogs)
-    big = plan_fit(spec(num_items=33_362, factors=50, max_samples=50,
-                        epochs=30, nnz_hist=500_000))
-    assert big.n_tail > 0 and big.chunk_tail == 0
-    # pre-computed shuffle layouts are built for the main layout only
-    assert plan_fit(spec(shuffle_layouts=4)).chunk_tail == 0
-    # already AT the parity chunk: nothing to tail into
-    assert plan_fit(spec(batch_size=128)).chunk_tail == 0
-    # mesh plans keep the single uniform DP schedule
-    mesh = _mesh((8,), ("data",))
-    assert plan_fit(spec(mesh=mesh, table_bytes=2**20)).chunk_tail == 0
-
-
-def test_ml1m_band_off_tpu_runs_xla_window():
-    p = plan_fit(spec(on_tpu=False))
-    assert not p.fused
-    assert p.step_kind == "window"             # 2 < 4 blocks <= 8
-    assert p.n_tail == 0
-    assert p.xla_batch <= 8192
-
-
-def test_tiny_catalog_tpu_gets_mixed_tail_xla_gets_candidate():
-    s = spec(num_items=1200, num_users=2400, n=90_000, epochs=10)
-    assert nblk(1200) <= 2
-    p = plan_fit(s)
-    assert p.fused and p.n_tail >= 1           # seed-fragility tail
-    assert p.n_main + p.n_tail == 10
-    p2 = plan_fit(spec(num_items=1200, num_users=2400, n=90_000,
-                       epochs=10, on_tpu=False))
-    assert not p2.fused and p2.step_kind == "candidate"
-
-
-def test_instacart_band_tpu_fused_bf16_with_candidate_tail():
-    s = spec(num_items=33_362, num_users=10_000, n=518_000, factors=50,
-             max_samples=50, epochs=30)
-    assert 8 < nblk(33_362) <= 64
-    p = plan_fit(s)
-    assert p.fused and p.table_mode == "bf16" and p.table_bf16
-    assert p.n_tail == min(3, 30 // 6) == 3 and p.n_main == 27
-    assert p.step_kind == "candidate"          # the tail's XLA step kind
+    # auto batch: a power of two, at most 8192, and 2*I/mean_sw^2-capped
+    assert p.batch_size & (p.batch_size - 1) == 0
+    assert 256 <= p.batch_size <= 8192
+    assert 2 <= p.rounds <= 8
 
 
 def test_webscale_band_falls_back_to_candidate_step():
     s = spec(num_items=1_000_000, num_users=100_000, n=5_000_000,
              factors=64, max_samples=10)
-    assert nblk(1_000_000) > 64
+    assert num_blocks(1_000_000) > 64
     p = plan_fit(s)
-    assert not p.fused and p.table_mode is None
     assert p.step_kind == "candidate"
+    assert p.batch_size == 8192
 
 
 # ---- knob forcing ----
 
-def test_use_fused_false_and_train_step_forcing():
-    p = plan_fit(spec(use_fused=False))
-    assert not p.fused
-    p = plan_fit(spec(use_fused=False, train_step="candidate"))
-    assert p.step_kind == "candidate"
-    p = plan_fit(spec(use_fused=False, train_step="window"))
-    assert p.step_kind == "window"
-    # 'mixed' on the fused path forces the tail even in the parity band
-    p = plan_fit(spec(train_step="mixed"))
-    assert p.fused and p.n_tail == 3
+def test_train_step_forcing():
+    assert plan_fit(spec(train_step="candidate")).step_kind == "candidate"
+    assert plan_fit(spec(num_items=33_362,
+                         train_step="window")).step_kind == "window"
+    assert plan_fit(spec(train_step="auto")).step_kind == "window"
 
 
 def test_bpr_resolves_max_samples_to_one_and_bad_loss_raises():
@@ -132,47 +79,19 @@ def test_bpr_resolves_max_samples_to_one_and_bad_loss_raises():
         plan_fit(spec(loss="hinge"))
 
 
-def test_user_batch_size_respected_and_gates_fused():
-    # multiple of 128: fused keeps it
-    p = plan_fit(spec(batch_size=4096))
-    assert p.fused and p.batch_size == 4096
-    # NOT a multiple of 128: fused ineligible, XLA keeps the user value
-    p = plan_fit(spec(batch_size=1000))
-    assert not p.fused and p.xla_batch == 1000
+def test_user_batch_size_respected():
+    assert plan_fit(spec(batch_size=4096)).batch_size == 4096
+    assert plan_fit(spec(batch_size=1000)).batch_size == 1000
 
 
 def test_xla_batch_stability_cap_small_catalog():
     # 100-item catalog: expected touches-per-item cap binds (2*I -> 256)
-    p = plan_fit(spec(num_items=100, num_users=500, n=100_000,
-                      on_tpu=False))
-    assert p.xla_batch == 256
+    p = plan_fit(spec(num_items=100, num_users=500, n=100_000))
+    assert p.batch_size == 256
     # heavy sample weights shrink the cap's numerator
     p2 = plan_fit(spec(num_items=4000, num_users=500, n=100_000,
-                       on_tpu=False, mean_sample_weight=4.0))
-    assert p2.xla_batch <= 512
-
-
-def test_n_windows_override_clamped_and_default_elided():
-    # ML-1M band default is 1 window; asking for 2 is an override
-    p = plan_fit(spec(n_windows=2))
-    assert p.n_windows == 2
-    # asking for the default explicitly -> None (no distinct program)
-    assert plan_fit(spec(n_windows=1)).n_windows is None
-    # clamped to the catalog's block count
-    assert plan_fit(spec(n_windows=64)).n_windows <= nblk(3706)
-
-
-def test_tail_windows_resolution():
-    s = spec(num_items=33_362, num_users=10_000, n=518_000, factors=50,
-             max_samples=50, epochs=30, tail_windows=8)
-    p = plan_fit(s)
-    assert p.n_tail == 3 and p.tail_windows == 8   # > default 4 -> wide tail
-    # at/below the default window count: keep the candidate tail
-    p2 = plan_fit(s.__class__(**{**s.__dict__, "tail_windows": 4}))
-    assert p2.tail_windows is None
-    # no tail -> no wide tail either
-    p3 = plan_fit(spec(tail_windows=8))
-    assert p3.n_tail == 0 and p3.tail_windows is None
+                       mean_sample_weight=4.0))
+    assert p2.batch_size <= 512
 
 
 def test_sampling_fidelity_from_history_density():
@@ -194,29 +113,69 @@ def _mesh(shape, names):
     return Mesh(devs, names)
 
 
-def test_mesh_small_tables_place_dp_and_fused_stays_eligible():
+def test_mesh_small_tables_place_dp():
     mesh = _mesh((2, 4), ("data", "model"))
-    tbytes = 50 * 2**20                        # fits DP_TABLE_BYTES
-    p = plan_fit(spec(mesh=mesh, table_bytes=tbytes))
+    p = plan_fit(spec(mesh=mesh, table_bytes=50 * 2**20))
     assert p.n_dev == 8 and p.placement == "dp"
-    assert p.fused                             # DP-fused kernel allowed
-    assert p.batch_size % (128 * 8) == 0       # whole chunks per device
-    assert p.xla_batch % 8 == 0
+    assert p.batch_size % 8 == 0
 
 
-def test_mesh_giant_tables_place_tp_and_disable_fused():
+def test_mesh_giant_tables_place_tp():
     mesh = _mesh((2, 4), ("data", "model"))
-    tbytes = 300 * 2**20                       # exceeds DP_TABLE_BYTES
-    p = plan_fit(spec(mesh=mesh, table_bytes=tbytes))
+    p = plan_fit(spec(mesh=mesh, table_bytes=300 * 2**20))
     assert p.placement == "tp"
-    assert not p.fused                         # fused kernel is DP-only
     assert p.step_kind == "window"             # window-band catalog keeps it
 
 
-def test_mesh_off_tpu_still_plans_placement():
-    mesh = _mesh((8,), ("data",))
-    p = plan_fit(spec(mesh=mesh, table_bytes=10 * 2**20, on_tpu=False))
-    assert not p.fused and p.placement == "dp" and p.n_dev == 8
+# ---- the DP budget follows the device's memory ----
+
+class _Dev:
+    def __init__(self, limit):
+        self._limit = limit
+
+    def memory_stats(self):
+        return None if self._limit is None else {"bytes_limit": self._limit}
+
+
+def _fake_mesh(limits):
+    devs = np.array([_Dev(x) for x in limits], dtype=object)
+    return types.SimpleNamespace(devices=devs,
+                                 shape={"data": len(limits), "model": 1})
+
+
+@pytest.mark.parametrize("limits,budget", [
+    # a card reporting 60 GB to the allocator: 1/8 of it
+    ([60 * 2**30] * 4, 60 * 2**30 // 8),
+    # the smallest device bounds the replicated pytree
+    ([60 * 2**30, 20 * 2**30], 20 * 2**30 // 8),
+    # no device reports memory (the CPU backend): the fixed fallback
+    ([None, None], 256 * 2**20),
+])
+def test_uses_dp_follows_device_memory(limits, budget):
+    from rankfm_tpu.parallel import train as ptrain
+    mesh = _fake_mesh(limits)
+    assert ptrain.dp_table_budget(mesh) == budget
+    n = len(limits)
+    assert ptrain.uses_dp(mesh, 8192, budget, budget)
+    assert not ptrain.uses_dp(mesh, 8192, budget + 1, budget)
+    # the batch must also deal evenly to the devices
+    assert not ptrain.uses_dp(mesh, 8192 * n + 1, 0, budget)
+
+
+@pytest.mark.parametrize("over", [0, 1], ids=["fits", "over"])
+def test_plan_places_by_the_budget_it_is_given(over):
+    """plan_fit reads the DP budget from its spec and no device: a mesh
+    whose devices would refuse to report memory plans all the same"""
+    class _NoStats:
+        def memory_stats(self):
+            raise AssertionError("plan_fit must not read device memory")
+
+    mesh = types.SimpleNamespace(devices=np.array([_NoStats()] * 4),
+                                 shape={"data": 4, "model": 1})
+    budget = 3 * 2**30
+    p = plan_fit(spec(mesh=mesh, table_bytes=budget + over,
+                      dp_budget=budget))
+    assert p.placement == ("tp" if over else "dp")
 
 
 # ---- the plan is what fit_partial actually executes ----
@@ -229,6 +188,5 @@ def test_fit_exposes_plan_and_runs_it():
     m.fit(inter, epochs=2)
     p = m.last_fit_plan_
     assert isinstance(p, FitPlan)
-    assert not p.fused                         # CPU backend in tests
     assert p.step_kind == "candidate"          # 50 items -> 1 block
-    assert p.xla_batch == 128 and p.placement == "single"
+    assert p.batch_size == 128 and p.placement == "single"

@@ -137,7 +137,7 @@ def test_sharded_epoch_uses_window_step_and_stays_fast():
     a blowout vs the single-device epoch — gate at 6x."""
     import time
 
-    from rankfm_tpu.ops.fused import pack_history_device
+    from rankfm_tpu.ops.window import pack_history_device
     from rankfm_tpu.ops.training import make_epoch_fn
     from rankfm_tpu.parallel.train import make_sharded_epoch_fn
 
@@ -206,7 +206,7 @@ def test_sharded_epoch_indivisible_batch_falls_back():
     """batch_size not divisible by the device count can't shard per-device
     (the shard_map DP path asserts) — dispatch must quietly take the GSPMD
     path instead of raising at trace time."""
-    from rankfm_tpu.ops.fused import pack_history_device
+    from rankfm_tpu.ops.window import pack_history_device
     from rankfm_tpu.parallel.train import make_sharded_epoch_fn
 
     rng = np.random.default_rng(11)
@@ -324,167 +324,3 @@ def test_dp_sync_every_clamps_to_batch_count():
                dp_sync_every=1000)
     m.fit(df, epochs=2)
     assert m.is_fit and np.isfinite(m.v_i).all()
-
-
-# ---------------------------------------------------------------------------
-# fused kernel on the DP mesh: the shard_map plumbing is testable on CPU by
-# injecting an XLA emulator for the Mosaic batch program (same signature);
-# the REAL kernel runs under the TPU-gated tests in test_fused.py
-# ---------------------------------------------------------------------------
-
-def _fake_batch_fn(chunk, num_users, num_items):
-    """XLA stand-in for the fused Mosaic batch program: counts each VALID
-    record's visit into column 0 of the corresponding user/item table row
-    and returns the count of valid rows as the 'log likelihood'. Additive,
-    so the delta-psum merge must make the epoch total exact regardless of
-    device split or sync cadence."""
-    from rankfm_tpu.ops import fused as fused_mod
-    ubw = fused_mod.user_block(num_users)
-    blkw = fused_mod.block_size(num_items)
-
-    def fn(tab_u, tab_i, rec, win_cols, cid, blk, ublk, iblk, seed, eta,
-           dreg, x_uf=None, x_if=None, tab_uf=None, tab_if=None):
-        idx = (cid[:, None] * chunk + jnp.arange(chunk)[None, :]).reshape(-1)
-        u_loc, i1, v = fused_mod.unpack_record_cols(rec[idx][:, 0])
-        valid = v.astype(jnp.float32)
-        u_abs = jnp.repeat(ublk, chunk) * ubw + u_loc
-        i_abs = jnp.repeat(iblk, chunk) * blkw + i1 - 1
-        iid = jnp.where(i1 > 0, i_abs, tab_i.shape[0] - 1)
-        tab_u = tab_u.at[u_abs, 0].add(valid)
-        tab_i = tab_i.at[iid, 0].add(valid)
-        return tab_u, tab_i, tab_uf, tab_if, jnp.sum(valid)
-
-    return fn
-
-
-@pytest.mark.parametrize("sync_every", [1, 4])
-def test_fused_dp_epoch_visits_every_row_once(sync_every):
-    """Across all 8 devices, one DP-fused epoch must visit every real
-    interaction exactly once (the device-major chunk split partitions the
-    fit-time layout) and merge the per-device deltas additively."""
-    from rankfm_tpu.ops import fused as fused_mod
-    from rankfm_tpu.parallel.fused import make_fused_dp_epoch_fn
-
-    rng = np.random.default_rng(3)
-    U, I, n, bs = 500, 300, 3000, 1024
-    u = rng.integers(0, U, n).astype(np.int32)
-    i = rng.integers(0, I, n).astype(np.int32)
-    sw = np.ones(n, np.float32)
-
-    chunk = fused_mod.pick_chunk(bs // 8, U, I, n)
-    layout = fused_mod.make_records_grouped(u, i, sw, U, I, bs, chunk)
-    rec, group, cids, ublk, iblk = layout
-    cids_s, ublk_s, iblk_s = fused_mod.split_layout_for_mesh(
-        cids, ublk, iblk, 8)
-
-    mesh = make_mesh(data=8, model=1)
-    epoch_fn = make_fused_dp_epoch_fn(
-        mesh, U, I, 8, 1, bs, chunk, sync_every=sync_every,
-        batch_fn=_fake_batch_fn(chunk, U, I))
-
-    U_pad, I_pad = fused_mod.user_pad(U), fused_mod.item_pad(I)
-    tab_u = jnp.zeros((U_pad, 128), jnp.float32)
-    tab_i = jnp.zeros((I_pad, 128), jnp.float32)
-    win_cols = jnp.zeros((1, 128), jnp.int32)
-
-    tab_u, tab_i, ll = epoch_fn(
-        tab_u, tab_i, win_cols, jnp.asarray(rec), jnp.asarray(group),
-        jnp.asarray(cids_s), jnp.asarray(ublk_s), jnp.asarray(iblk_s),
-        0.1, 0.01, jax.random.PRNGKey(0), 0)
-
-    np.testing.assert_array_equal(
-        np.asarray(tab_u[:, 0]), np.bincount(u, minlength=U_pad))
-    np.testing.assert_array_equal(
-        np.asarray(tab_i[:, 0]), np.bincount(i, minlength=I_pad))
-    assert float(ll) == n
-
-
-def test_fused_dp_epoch_shuffles_but_conserves_counts():
-    """Different epochs produce different shuffles/rotations (shared across
-    devices) yet still visit each row exactly once."""
-    from rankfm_tpu.ops import fused as fused_mod
-    from rankfm_tpu.parallel.fused import make_fused_dp_epoch_fn
-
-    rng = np.random.default_rng(5)
-    U, I, n, bs = 64, 96, 800, 1024  # per-device batch = 128 (the floor)
-    u = rng.integers(0, U, n).astype(np.int32)
-    i = rng.integers(0, I, n).astype(np.int32)
-    sw = np.ones(n, np.float32)
-
-    chunk = fused_mod.pick_chunk(bs // 8, U, I, n)
-    rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
-        u, i, sw, U, I, bs, chunk)
-    cids_s, ublk_s, iblk_s = fused_mod.split_layout_for_mesh(
-        cids, ublk, iblk, 8)
-
-    mesh = make_mesh(data=8, model=1)
-    epoch_fn = make_fused_dp_epoch_fn(
-        mesh, U, I, 8, 1, bs, chunk, batch_fn=_fake_batch_fn(chunk, U, I))
-
-    U_pad, I_pad = fused_mod.user_pad(U), fused_mod.item_pad(I)
-    for epoch in (0, 1, 7):
-        tab_u = jnp.zeros((U_pad, 128), jnp.float32)
-        tab_i = jnp.zeros((I_pad, 128), jnp.float32)
-        tab_u, tab_i, ll = epoch_fn(
-            tab_u, tab_i, jnp.zeros((1, 128), jnp.int32), jnp.asarray(rec),
-            jnp.asarray(group), jnp.asarray(cids_s), jnp.asarray(ublk_s),
-            jnp.asarray(iblk_s), 0.1, 0.01, jax.random.PRNGKey(42), epoch)
-        np.testing.assert_array_equal(
-            np.asarray(tab_u[:, 0]), np.bincount(u, minlength=U_pad))
-        assert float(ll) == n
-
-
-def test_fused_dp_epoch_feature_variant_plumbing():
-    """The 17-arg feature form: feature tables ride the same delta-psum
-    merge (donation indices, psum over tab_uf/tab_if, beta threading)."""
-    from rankfm_tpu.ops import fused as fused_mod
-    from rankfm_tpu.parallel.fused import make_fused_dp_epoch_fn
-
-    rng = np.random.default_rng(7)
-    U, I, n, bs = 200, 150, 1500, 1024
-    u = rng.integers(0, U, n).astype(np.int32)
-    i = rng.integers(0, I, n).astype(np.int32)
-    sw = np.ones(n, np.float32)
-
-    chunk = fused_mod.pick_chunk(bs // 8, U, I, n)
-    rec, group, cids, ublk, iblk = fused_mod.make_records_grouped(
-        u, i, sw, U, I, bs, chunk)
-    cids_s, ublk_s, iblk_s = fused_mod.split_layout_for_mesh(
-        cids, ublk, iblk, 8)
-
-    def fake_feat_batch_fn(tab_u, tab_i, rec_, win_cols, cid, blk, ublk_,
-                           iblk_, seed, eta, dreg, x_uf=None, x_if=None,
-                           tab_uf=None, tab_if=None):
-        base = _fake_batch_fn(chunk, U, I)
-        tab_u, tab_i, _, _, nvalid = base(
-            tab_u, tab_i, rec_, win_cols, cid, blk, ublk_, iblk_, seed,
-            eta, dreg)
-        # feature tables: count visits in one cell (additive, mergeable)
-        tab_uf = tab_uf.at[0, 0].add(nvalid)
-        tab_if = tab_if.at[0, 0].add(nvalid * 2.0)
-        return tab_u, tab_i, tab_uf, tab_if, nvalid
-
-    mesh = make_mesh(data=8, model=1)
-    epoch_fn = make_fused_dp_epoch_fn(
-        mesh, U, I, 8, 1, bs, chunk, has_uf=True, has_if=True,
-        batch_fn=fake_feat_batch_fn)
-
-    U_pad, I_pad = fused_mod.user_pad(U), fused_mod.item_pad(I)
-    tab_u = jnp.zeros((U_pad, 128), jnp.float32)
-    tab_i = jnp.zeros((I_pad, 128), jnp.float32)
-    tab_uf = jnp.zeros((128, 128), jnp.float32)
-    tab_if = jnp.zeros((128, 128), jnp.float32)
-    x_uf = jnp.zeros((U_pad, 128), jnp.float32)
-    x_if = jnp.zeros((I_pad, 128), jnp.float32)
-
-    tab_u, tab_i, tab_uf, tab_if, ll = epoch_fn(
-        tab_u, tab_i, jnp.zeros((1, 128), jnp.int32), jnp.asarray(rec),
-        jnp.asarray(group), jnp.asarray(cids_s), jnp.asarray(ublk_s),
-        jnp.asarray(iblk_s), 0.1, 0.01, jax.random.PRNGKey(1), 0,
-        x_uf, x_if, tab_uf, tab_if, 0.05)
-
-    np.testing.assert_array_equal(
-        np.asarray(tab_u[:, 0]), np.bincount(u, minlength=U_pad))
-    assert float(tab_uf[0, 0]) == n
-    assert float(tab_if[0, 0]) == 2.0 * n
-    assert float(ll) == n

@@ -81,14 +81,14 @@ def test_tp_window_epoch_matches_single_device_window_epoch():
     the single-device window step, so the whole epoch must agree — giant-
     table meshes no longer pay candidate-step cost on window-sized
     catalogs."""
-    from rankfm_tpu.ops import fused
+    from rankfm_tpu.ops import window
 
     rng = np.random.default_rng(3)
     U, I, n, bs = 60, 90, 2000, 256
     u, i, w, x_uf, x_if, hist, mrl = _fixture(rng, U=U, I=I, n=n)
     up, ip, swp = _padded(u, i, n, bs)
     args = (up, ip, swp, n, 0.1, 0.01, 0.1, jax.random.PRNGKey(5), 0)
-    packed = fused.pack_history_device(
+    packed = window.pack_history_device(
         np.asarray(hist["offsets"]), np.asarray(hist["flat"]), U, I)
 
     ref_fn = make_epoch_fn(I, 4, False, False, bs, donate=False,
@@ -114,13 +114,13 @@ def test_tp_window_epoch_matches_single_device_window_epoch():
 def test_tp_window_epoch_trains_on_data_model_mesh():
     """data=2, model=4, step_kind='window': multi-axis TP window training
     improves the log-likelihood and never writes shard-padding rows."""
-    from rankfm_tpu.ops import fused
+    from rankfm_tpu.ops import window
 
     rng = np.random.default_rng(8)
     U, I, n, bs = 60, 90, 2000, 256
     u, i, w, x_uf, x_if, hist, mrl = _fixture(rng, U=U, I=I, n=n)
     up, ip, swp = _padded(u, i, n, bs)
-    packed = fused.pack_history_device(
+    packed = window.pack_history_device(
         np.asarray(hist["offsets"]), np.asarray(hist["flat"]), U, I)
 
     mesh = make_mesh(data=2, model=4)
@@ -147,14 +147,14 @@ def test_tp_window_sharded_selection_branch():
     shard-padding rows untouched. (The exact-parity test above runs the
     replicated branch — split selection uses per-shard PRNG folds, so its
     draws legitimately differ from the single-device stream.)"""
-    from rankfm_tpu.ops import fused
+    from rankfm_tpu.ops import window
     from rankfm_tpu.ops.training import pick_window_groups
 
     rng = np.random.default_rng(11)
     U, I, n, bs = 300, 600, 8000, 2048
     u, i, w, x_uf, x_if, hist, mrl = _fixture(rng, U=U, I=I, n=n)
     up, ip, swp = _padded(u, i, n, bs)
-    packed = fused.pack_history_device(
+    packed = window.pack_history_device(
         np.asarray(hist["offsets"]), np.asarray(hist["flat"]), U, I)
 
     mesh = make_mesh(data=4, model=2)
